@@ -1,0 +1,145 @@
+"""BERT text tower, eval forward (port of ``clover_tpu/models/bert.py``).
+
+Post-LN encoder layers with HF semantics: additive -10000 key mask, erf
+GELU, LayerNorm eps 1e-12. The embedding norm and the attention norms are
+the forward-only LayerNorm kernel sites (K4); the FFN half is the post-LN
+MLP kernel (K3). Self-attention itself stays plain PyTorch, as it is plain
+XLA in the JAX package. Parameter names follow the JAX tree
+(``embeddings``, ``encoder.layer_{i}.{attention.{query,key,value},
+attention_output, attention_norm, intermediate, output, output_norm}``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from clover_tpu_torch.models.layers import LayerNorm, Linear
+from clover_tpu_torch.ops.mlp_block import fused_mlp_postln, mlp_postln_plain
+
+# additive fill for padded keys (transformers==4.6.1, the reference's pin)
+ATTENTION_MASK_FILL = -10000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class BertConfig:
+    """The fields of ``clover_tpu.models.bert.BertConfig`` the eval forward reads."""
+
+    vocab_size: int = 30522
+    hidden_size: int = 768
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 512
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+
+
+def extend_attention_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """(B, S) 1/0 mask -> (B, 1, 1, S) additive mask (HF semantics)."""
+    mask = mask.to(dtype)
+    return ((1.0 - mask) * ATTENTION_MASK_FILL)[:, None, None, :]
+
+
+class BertEmbeddings(nn.Module):
+    """Token + absolute-position + token-type embeddings, then LN; output in
+    ``dtype``. The retrieval text tower runs one segment from position 0, so
+    every token has type 0."""
+
+    def __init__(self, cfg: BertConfig, kernels: bool = True):
+        super().__init__()
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
+        self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, kernel=kernels)
+
+    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
+        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)[None]
+             + self.token_type_embeddings.weight[0])
+        return self.norm(x.to(dtype))
+
+
+class BertSelfAttention(nn.Module):
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.hidden_size // cfg.num_attention_heads
+        self.query = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
+        self.key = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
+        self.value = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        B, S, C = x.shape
+
+        def heads(t):
+            return t.view(B, S, self.num_heads, self.head_dim).transpose(1, 2)
+
+        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        logits = torch.matmul(q, k.transpose(-1, -2)) * (1.0 / math.sqrt(self.head_dim))
+        if attn_bias is not None:
+            logits = logits + attn_bias.to(logits.dtype)
+        probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        return torch.matmul(probs, v).transpose(1, 2).reshape(B, S, C)
+
+
+class BertLayer(nn.Module):
+    """Post-LN layer, eval branch: attention + residual + LN, then the fused
+    FFN half LN(x + fc2(gelu(fc1(x))))."""
+
+    def __init__(self, cfg: BertConfig, kernels: bool = True):
+        super().__init__()
+        C = cfg.hidden_size
+        self.eps = cfg.layer_norm_eps
+        self.kernels = kernels
+        self.attention = BertSelfAttention(cfg)
+        self.attention_output = Linear(C, C, init="normal")
+        self.attention_norm = LayerNorm(C, cfg.layer_norm_eps, kernel=kernels)
+        self.intermediate = Linear(C, cfg.intermediate_size, init="normal")
+        self.output = Linear(cfg.intermediate_size, C, init="normal")
+        self.output_norm = LayerNorm(C, cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        attn = self.attention_output(self.attention(x, attn_bias))
+        x = self.attention_norm(x + attn)
+        op = fused_mlp_postln if self.kernels else mlp_postln_plain
+        C = x.shape[-1]
+        out = op(x.reshape(-1, C), self.output_norm.weight, self.output_norm.bias,
+                 self.intermediate.weight, self.intermediate.bias, self.output.weight,
+                 self.output.bias, self.eps)
+        return out.view(x.shape)
+
+
+class BertEncoder(nn.Module):
+    def __init__(self, cfg: BertConfig, kernels: bool = True):
+        super().__init__()
+        self.num_layers = cfg.num_hidden_layers
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"layer_{i}", BertLayer(cfg, kernels))
+
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+        for i in range(self.num_layers):
+            x = getattr(self, f"layer_{i}")(x, attn_bias)
+        return x
+
+
+class BertTextEncoder(nn.Module):
+    """Embeddings + encoder -> (B, S, hidden) last hidden state in ``dtype``."""
+
+    def __init__(self, cfg: BertConfig = BertConfig(), dtype: torch.dtype = torch.float32,
+                 kernels: bool = True):
+        super().__init__()
+        self.dtype = dtype
+        self.embeddings = BertEmbeddings(cfg, kernels)
+        self.encoder = BertEncoder(cfg, kernels)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if attention_mask is None:
+            attention_mask = torch.ones_like(input_ids)
+        x = self.embeddings(input_ids, self.dtype)
+        return self.encoder(x, extend_attention_mask(attention_mask))

@@ -1,0 +1,105 @@
+"""Shared building blocks (port of ``clover_tpu/models/layers.py``).
+
+Dtype policy as in the JAX package: parameters are fp32, compute runs in
+the dtype of the activations (bf16 on the card, fp32 in the CPU tests),
+LayerNorm statistics and softmax are fp32.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with fp32 parameters that computes in x's dtype.
+
+    ``init`` names the initializer :func:`init_params` applies, as the JAX
+    modules pick theirs: 'trunc_normal' (std .02, Swin), 'normal' (std .02,
+    BERT), 'xavier' (projection heads)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 init: str = "trunc_normal"):
+        super().__init__(in_features, out_features, bias=bias)
+        self.init = init
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with fp32 statistics, output in the input's dtype.
+
+    ``kernel=True`` marks the sites the JAX package runs through its fused
+    LayerNorm kernel (``LayerNormAuto`` with ``fwd_only``); they go through
+    ``fused_layer_norm``. The other sites (e.g. the projector norms) stay
+    plain, as in the reference."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, kernel: bool = False):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+        self.eps = eps
+        self.kernel = kernel
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        fn = fused_layer_norm if self.kernel else layer_norm_plain
+        return fn(x, self.weight, self.bias, self.eps)
+
+
+class Mlp(nn.Module):
+    """fc1 / fc2 of the transformer MLP (reference swin_transformer_3d.py
+    :250-268). The block runs them through ``fused_ln_mlp_residual``."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = Linear(in_features, hidden_features)
+        self.fc2 = Linear(hidden_features, out_features)
+
+
+class ProjectorNorm(nn.Module):
+    """The contrastive heads' projector norm, LayerNorm form (every live
+    config; ``ln=True`` in the reference). A plain LayerNorm, not a kernel
+    site."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.norm = LayerNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.norm(x)
+
+
+def trunc_normal_(t: torch.Tensor, generator: torch.Generator, std: float = 0.02) -> None:
+    """timm's trunc_normal_(std=.02): cut at two standard deviations."""
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random weights with the JAX package's initializers. Modules
+    that own raw parameters initialise them in ``init_weights(generator)``."""
+    for m in model.modules():
+        if hasattr(m, "init_weights"):
+            m.init_weights(generator)
+        elif isinstance(m, Linear):
+            if m.init == "xavier":
+                bound = math.sqrt(6.0 / (m.in_features + m.out_features))
+                nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+            elif m.init == "normal":
+                nn.init.normal_(m.weight, std=0.02, generator=generator)
+            else:
+                trunc_normal_(m.weight, generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            nn.init.normal_(m.weight, std=0.02, generator=generator)
+        elif isinstance(m, LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()

@@ -1,0 +1,401 @@
+"""Video Swin Transformer, eval forward (port of ``clover_tpu/models/swin3d.py``).
+
+What is ported is the path the retrieval eval runs: host space-to-depth
+input with the ImageNet normalization folded into the patch embed,
+window-resident stages (activations stay partitioned into windows for a
+whole stage; a shifted block permutes tokens in and out), the flat window
+attention (kernel K1), the fused LN2+MLP+residual half (kernel K2) and the
+forward-only LayerNorm sites (kernel K4). Layout is channels-last
+(B, T, H, W, C) as in the JAX package; parameter names follow its tree
+(``stage_{i}_block_{j}``, ``patch_embed``, ``stage_{i}_downsample``, ``norm``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from clover_tpu_torch.models.layers import LayerNorm, Linear, Mlp, trunc_normal_
+from clover_tpu_torch.ops.mlp_block import fused_ln_mlp_residual, ln_mlp_residual_plain
+from clover_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+from clover_tpu_torch.ops.window_attention import (
+    flat2_window_attention,
+    window_attention_plain,
+)
+
+Tuple3 = Tuple[int, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinConfig:
+    """The fields of ``clover_tpu.models.swin3d.SwinConfig`` the eval forward
+    reads. The input is always host space-to-depth (``embed_impl='host_s2d'``)
+    and the stages are window-resident."""
+
+    patch_size: Tuple3 = (2, 4, 4)
+    in_chans: int = 3
+    embed_dim: int = 128
+    depths: Tuple[int, ...] = (2, 2, 18, 2)
+    num_heads: Tuple[int, ...] = (4, 8, 16, 32)
+    window_size: Tuple3 = (8, 7, 7)
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    qk_scale: Optional[float] = None
+    patch_norm: bool = True
+    fold_normalize: bool = False
+    gelu: str = "tanh"          # 'tanh' | 'erf', as SwinConfig.gelu
+
+    @property
+    def num_features(self) -> int:
+        return int(self.embed_dim * 2 ** (len(self.depths) - 1))
+
+    @classmethod
+    def base(cls, **kw) -> "SwinConfig":
+        return cls(embed_dim=128, depths=(2, 2, 18, 2), num_heads=(4, 8, 16, 32), **kw)
+
+
+# ------------------------------------------------------------ static helpers
+# (numpy, computed once per shape like the JAX package's trace-time constants)
+
+def effective_window(x_size: Tuple3, window: Tuple3, shift: Optional[Tuple3] = None):
+    """Clamp window dims to the input size; clamped dims get zero shift."""
+    win = list(window)
+    sh = list(shift) if shift is not None else None
+    for i in range(3):
+        if x_size[i] <= window[i]:
+            win[i] = x_size[i]
+            if sh is not None:
+                sh[i] = 0
+    if sh is None:
+        return tuple(win)
+    return tuple(win), tuple(sh)
+
+
+@functools.lru_cache(maxsize=None)
+def relative_position_index(full_window: Tuple3, eff_window: Tuple3) -> np.ndarray:
+    """(N, N) index into the (2Wd-1)(2Wh-1)(2Ww-1)-row bias table, built for
+    the effective window with the full window's offsets and strides."""
+    coords = np.stack(
+        np.meshgrid(*[np.arange(w) for w in eff_window], indexing="ij")
+    ).reshape(3, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0).astype(np.int64)
+    for i in range(3):
+        rel[:, :, i] += full_window[i] - 1
+    rel[:, :, 0] *= (2 * full_window[1] - 1) * (2 * full_window[2] - 1)
+    rel[:, :, 1] *= 2 * full_window[2] - 1
+    return rel.sum(-1).astype(np.int32)
+
+
+def bias_from_table(table: torch.Tensor, full_window: Tuple3, eff_window: Tuple3,
+                    num_heads: int) -> torch.Tensor:
+    """(table_len, nH) table -> (nH, N, N) fp32 attention bias."""
+    N = int(np.prod(eff_window))
+    idx = torch.from_numpy(
+        relative_position_index(tuple(full_window), tuple(eff_window)).reshape(-1).astype(np.int64))
+    return table.float()[idx.to(table.device)].reshape(N, N, num_heads).permute(2, 0, 1)
+
+
+def swin_bias_cache(backbone: "SwinTransformer3D", cfg: SwinConfig,
+                    token_dims: Tuple3) -> Dict[str, torch.Tensor]:
+    """Every block's (nH, N, N) fp32 relative-position bias for the post-embed
+    token dims (D', H', W'). Eval-only: computed once per checkpoint and
+    passed to the forward as ``bias_cache``."""
+    dims = tuple(token_dims)
+    cache = {}
+    with torch.no_grad():
+        for i_stage in range(len(cfg.depths)):
+            window = effective_window(dims, cfg.window_size)
+            for i_blk in range(cfg.depths[i_stage]):
+                name = f"stage_{i_stage}_block_{i_blk}"
+                attn = getattr(backbone, name).attn
+                cache[name] = bias_from_table(attn.relative_position_bias_table,
+                                              cfg.window_size, window,
+                                              cfg.num_heads[i_stage])
+            if i_stage < len(cfg.depths) - 1:
+                dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
+    return cache
+
+
+@functools.lru_cache(maxsize=None)
+def _shift_region_ids(padded_size: Tuple3, window: Tuple3,
+                      shift: Tuple3) -> Optional[np.ndarray]:
+    """(nW, N) per-window region ids for the shifted-window mask (reference
+    compute_mask, swin_transformer_3d.py:548-562)."""
+    if not any(s > 0 for s in shift):
+        return None
+    D, H, W = padded_size
+    img_mask = np.zeros((D, H, W), dtype=np.int32)
+    cnt = 0
+    for d in (slice(-window[0]), slice(-window[0], -shift[0] or None),
+              slice(-shift[0] or None, None)):
+        for h in (slice(-window[1]), slice(-window[1], -shift[1] or None),
+                  slice(-shift[1] or None, None)):
+            for w in (slice(-window[2]), slice(-window[2], -shift[2] or None),
+                      slice(-shift[2] or None, None)):
+                img_mask[d, h, w] = cnt
+                cnt += 1
+    return img_mask.reshape(
+        D // window[0], window[0], H // window[1], window[1], W // window[2], window[2]
+    ).transpose(0, 2, 4, 1, 3, 5).reshape(-1, window[0] * window[1] * window[2])
+
+
+@functools.lru_cache(maxsize=None)
+def shift_attn_mask(padded_size: Tuple3, window: Tuple3,
+                    shift: Tuple3) -> Optional[np.ndarray]:
+    """(nW, N, N) additive mask (0 / -100) for shifted-window attention."""
+    wins = _shift_region_ids(padded_size, window, shift)
+    if wins is None:
+        return None
+    diff = wins[:, None, :] - wins[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+def window_partition(x: torch.Tensor, window: Tuple3) -> torch.Tensor:
+    """(B, D, H, W, C) -> (B * nW, N, C)."""
+    B, D, H, W, C = x.shape
+    x = x.reshape(B, D // window[0], window[0], H // window[1], window[1],
+                  W // window[2], window[2], C)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(-1, window[0] * window[1] * window[2], C)
+
+
+def window_reverse(windows: torch.Tensor, window: Tuple3, B: int, D: int, H: int,
+                   W: int) -> torch.Tensor:
+    """(B * nW, N, C) -> (B, D, H, W, C)."""
+    C = windows.shape[-1]
+    x = windows.reshape(B, D // window[0], H // window[1], W // window[2],
+                        window[0], window[1], window[2], C)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return x.reshape(B, D, H, W, C)
+
+
+@functools.lru_cache(maxsize=64)
+def _window_shift_perm_np(dims: Tuple3, window: Tuple3, shift: Tuple3):
+    """Token permutation unshifted-window-major -> shifted-window-major:
+    (perm, inv_perm) with x_shifted[:, i] = x[:, perm[i]]."""
+    D, H, W = dims
+    wd, wh, ww = window
+
+    def part(t):
+        t = t.reshape(D // wd, wd, H // wh, wh, W // ww, ww)
+        return t.transpose(0, 2, 4, 1, 3, 5).reshape(-1)
+
+    tokens = np.arange(D * H * W).reshape(D, H, W)
+    base = part(tokens)
+    rolled = part(np.roll(tokens, (-shift[0], -shift[1], -shift[2]), axis=(0, 1, 2)))
+    inv_base = np.empty_like(base)
+    inv_base[base] = np.arange(base.size)
+    perm = inv_base[rolled]
+    inv_perm = np.empty_like(perm)
+    inv_perm[perm] = np.arange(perm.size)
+    return perm.astype(np.int32), inv_perm.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_constant(kind: str, dims: Tuple3, window: Tuple3, shift: Tuple3,
+                     device: torch.device) -> Optional[torch.Tensor]:
+    """The shift permutations and region ids as device tensors, made once per
+    (shape, device) instead of copied from the host at every block."""
+    if kind == "region_ids":
+        ids = _shift_region_ids(dims, window, shift)
+        return None if ids is None else torch.from_numpy(ids).to(device)
+    perm, inv = _window_shift_perm_np(dims, window, shift)
+    chosen = inv if kind == "inv_perm" else perm
+    return torch.from_numpy(chosen.astype(np.int64)).to(device)
+
+
+def _apply_window_perm(x: torch.Tensor, dims: Tuple3, window: Tuple3, shift: Tuple3,
+                       inverse: bool) -> torch.Tensor:
+    """Regroup (B, L, C) window-major tokens for (or back from) a shifted
+    block: one gather with the precomputed permutation."""
+    idx = _device_constant("inv_perm" if inverse else "perm", tuple(dims), tuple(window),
+                           tuple(shift), x.device)
+    return x.index_select(1, idx)
+
+
+# ------------------------------------------------------------------ modules
+
+class WindowAttention3D(nn.Module):
+    """W-MSA / SW-MSA over flattened 3-D windows with relative position bias
+    (flat 2-D path: x is (Bn*N, C) row-major)."""
+
+    def __init__(self, dim: int, full_window: Tuple3, num_heads: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, kernels: bool = True):
+        super().__init__()
+        self.dim, self.full_window, self.num_heads = dim, tuple(full_window), num_heads
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.kernels = kernels
+        self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
+        table_len = int(np.prod([2 * w - 1 for w in self.full_window]))
+        self.relative_position_bias_table = nn.Parameter(torch.zeros(table_len, num_heads))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.relative_position_bias_table, generator)
+
+    def forward(self, x2: torch.Tensor, eff_window: Tuple3,
+                region_ids: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        N = int(np.prod(eff_window))
+        if bias is None:
+            bias = bias_from_table(self.relative_position_bias_table, self.full_window,
+                                   tuple(eff_window), self.num_heads)
+        attn = flat2_window_attention if self.kernels else window_attention_plain
+        out2 = attn(self.qkv(x2), bias, region_ids, self.scale, self.num_heads, N)
+        return self.proj(out2)
+
+
+class SwinBlock3D(nn.Module):
+    """One window-resident Swin block: x (B, nW*N, C) in unshifted window-major
+    order -> same. LN1 -> window attention -> residual, then the fused
+    LN2 + MLP + residual half (``SwinBlock3D._window_resident_call`` and
+    ``_mlp_half`` of the JAX package; DropPath is the identity at eval)."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True):
+        super().__init__()
+        self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
+        self.gelu = gelu
+        self.kernels = kernels
+        self.norm1 = LayerNorm(dim, kernel=kernels)
+        self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias, qk_scale, kernels)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def forward(self, x: torch.Tensor, dims: Tuple3,
+                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+        window, shift = effective_window(dims, self.window_size, self.shift_size)
+        B, L, C = x.shape
+        do_shift = any(s > 0 for s in shift)
+        region_ids = None
+        if do_shift:
+            x = _apply_window_perm(x, dims, window, shift, inverse=False)
+            region_ids = _device_constant("region_ids", tuple(dims), window, shift, x.device)
+        xn = self.norm1(x)
+        x = x + self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
+        x = self._mlp_half(x)
+        if do_shift:
+            x = _apply_window_perm(x, dims, window, shift, inverse=True)
+        return x
+
+    def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
+        op = fused_ln_mlp_residual if self.kernels else ln_mlp_residual_plain
+        C = x.shape[-1]
+        out = op(x.reshape(-1, C), self.norm2.weight, self.norm2.bias,
+                 self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
+                 self.mlp.fc2.bias, 1e-5, self.gelu)
+        return out.view(x.shape)
+
+
+class PatchMerging(nn.Module):
+    """2x2 spatial space-to-depth + LN + linear 4C -> 2C (reference :508-544)."""
+
+    def __init__(self, dim: int, kernels: bool = True):
+        super().__init__()
+        self.norm = LayerNorm(4 * dim, kernel=kernels)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, D, H, W, C = x.shape
+        if H % 2 or W % 2:
+            x = F.pad(x, (0, 0, 0, W % 2, 0, H % 2))
+        x = torch.cat([x[:, :, 0::2, 0::2], x[:, :, 1::2, 0::2],
+                       x[:, :, 0::2, 1::2], x[:, :, 1::2, 1::2]], dim=-1)
+        return self.reduction(self.norm(x))
+
+
+class PatchEmbed3D(nn.Module):
+    """Host space-to-depth patch embed: (B, D', H', W', pd*ph*pw*C_in) ->
+    (B, D', H', W', E) with one GEMM. ``proj`` keeps the JAX Dense layout
+    (pd*ph*pw*C_in, E), features in (dt, dy, dx, c) order. With
+    ``fold_normalize`` the input is pixel-scale and the ImageNet (x-mean)/std
+    is folded into the weights in fp32 before the cast."""
+
+    def __init__(self, cfg: SwinConfig, kernels: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        K = int(np.prod(cfg.patch_size)) * cfg.in_chans
+        self.proj = nn.ParameterDict({
+            "weight": nn.Parameter(torch.zeros(K, cfg.embed_dim)),
+            "bias": nn.Parameter(torch.zeros(cfg.embed_dim)),
+        })
+        self.norm = LayerNorm(cfg.embed_dim, kernel=kernels) if cfg.patch_norm else None
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.proj["weight"], generator)
+        self.proj["bias"].zero_()
+
+    def _folded(self):
+        k, b = self.proj["weight"], self.proj["bias"]
+        if not self.cfg.fold_normalize:
+            return k, b
+        c_in = self.cfg.in_chans
+        mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=k.device)
+        std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=k.device)
+        k3 = k.float().reshape(-1, c_in, k.shape[-1]) / std[None, :, None]
+        b = b.float() - (k3 * mean[None, :, None]).sum(dim=(0, 1))
+        return k3.reshape(k.shape), b
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        K = self.proj["weight"].shape[0]
+        if x.shape[-1] != K:
+            raise ValueError(f"host_s2d expects s2d input with {K} features, got "
+                             f"{x.shape[-1]}: use space_to_depth_host on the loader")
+        k, b = self._folded()
+        x = torch.matmul(x, k.to(x.dtype)) + b.to(x.dtype)
+        return self.norm(x) if self.norm is not None else x
+
+
+class SwinTransformer3D(nn.Module):
+    """Backbone: patch embed -> window-resident stages -> final LN.
+
+    forward(x, bias_cache=None): x (B, D', H', W', pd*ph*pw*3) host s2d
+    clips in the compute dtype (pixel-scale with fold_normalize, else
+    normalized) -> (B, D', H'/8, W'/8, num_features) in the same dtype."""
+
+    def __init__(self, cfg: SwinConfig, kernels: bool = True):
+        super().__init__()
+        self.cfg = cfg
+        self.patch_embed = PatchEmbed3D(cfg, kernels)
+        shift = tuple(s // 2 for s in cfg.window_size)
+        for i_stage, depth in enumerate(cfg.depths):
+            dim = int(cfg.embed_dim * 2 ** i_stage)
+            for i_blk in range(depth):
+                self.add_module(f"stage_{i_stage}_block_{i_blk}", SwinBlock3D(
+                    dim, cfg.num_heads[i_stage], cfg.window_size,
+                    (0, 0, 0) if i_blk % 2 == 0 else shift, cfg.mlp_ratio, cfg.qkv_bias,
+                    cfg.qk_scale, cfg.gelu, kernels))
+            if i_stage < len(cfg.depths) - 1:
+                self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
+        self.norm = LayerNorm(cfg.num_features, kernel=kernels)
+
+    def forward(self, x: torch.Tensor,
+                bias_cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.patch_embed(x)
+        for i_stage, depth in enumerate(cfg.depths):
+            B, D, H, W, C = x.shape
+            dims = (D, H, W)
+            window = effective_window(dims, cfg.window_size)
+            if any(d % w for d, w in zip(dims, window)):
+                raise NotImplementedError(
+                    f"stage {i_stage}: token dims {dims} do not divide the window "
+                    f"{window}; only window-resident stages are ported")
+            N = int(np.prod(window))
+            x = window_partition(x, window).reshape(B, -1, C)
+            for i_blk in range(depth):
+                name = f"stage_{i_stage}_block_{i_blk}"
+                blk_bias = bias_cache.get(name) if bias_cache is not None else None
+                x = getattr(self, name)(x, dims, blk_bias)
+            x = window_reverse(x.reshape(-1, N, C), window, B, D, H, W)
+            if i_stage < len(cfg.depths) - 1:
+                x = getattr(self, f"stage_{i_stage}_downsample")(x)
+        return self.norm(x)

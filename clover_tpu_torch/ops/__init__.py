@@ -1,0 +1,27 @@
+"""Ops of the port: each kernel wrapper, its plain PyTorch version, and the
+CUDA build (``_build``). A wrapper launches its kernel for a CUDA tensor and
+runs the plain version only for a CPU tensor; its ``launches`` attribute
+counts kernel launches."""
+
+from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain  # noqa: F401
+from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
+    fused_ln_mlp_residual,
+    fused_mlp_postln,
+    ln_mlp_residual_plain,
+    mlp_postln_plain,
+)
+from clover_tpu_torch.ops.window_attention import (  # noqa: F401
+    flat2_window_attention,
+    window_attention_plain,
+)
+
+KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}

@@ -1,0 +1,133 @@
+"""Build and load the port's CUDA kernels.
+
+On first use, ``nvcc`` compiles every ``clover_tpu_torch/csrc/*.cu`` into one
+shared library with a plain C interface (``sm_90a``), which is loaded with
+``ctypes``. The library's file name carries a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is reused. The
+build directory (``clover_tpu_torch/_build/``) is git-ignored.
+
+Every C entry point returns ``cudaGetLastError()`` right after its launch;
+:func:`launch` raises when that is not 0, so a refused launch (too much
+shared memory, a bad argument) never passes silently. :func:`launch` takes
+the device buffers as tensors and turns them into pointers itself.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# argument types of each C entry point; pointers and the stream are c_void_p
+_SIGNATURES = {
+    "clover_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "clover_ln_mlp_residual": (_P,) * 8 + (_I, _I, _I, _F, _I, _P),
+    "clover_mlp_postln": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
+    "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None   # wall time of the build this process ran, if any
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put the CUDA toolkit on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def _sources():
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    """Path of the library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libclover_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(target: Path) -> None:
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}")
+    os.replace(tmp, target)   # atomic: a concurrent loader sees all or nothing
+    build_seconds = time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not path.exists():
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.clover_error_string.argtypes = (ctypes.c_int,)
+            lib.clover_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry ``name``; raise if its launch reported a CUDA error.
+
+    Device buffers are passed as tensors, not as raw pointers, so each one
+    is alive until its kernel is queued: a temporary freed before that
+    could be handed by the caching allocator to a buffer the kernel
+    writes, and the kernel would overwrite its own input."""
+    lib = library()
+    rc = getattr(lib, name)(*(a.data_ptr() if hasattr(a, "data_ptr") else a for a in args))
+    if rc != 0:
+        msg = lib.clover_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def require(t, name: str, dtype, device, shape=None) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte aligned ``dtype`` tensor
+    on ``device`` (and of ``shape``, when given): what the kernels assume."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+def stream(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
