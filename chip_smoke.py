@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""Smoke run of clover_tpu_torch's retrieval-eval path on one CUDA card.
+"""Smoke run of clover_tpu_torch's retrieval-eval and retrieval-finetune
+paths on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, in order; any failure raises and exits non-zero:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from clover_tpu_torch/csrc (nvcc, sm_90a);
-3. hold each kernel against its plain PyTorch version at the shapes the
-   Swin-B + BERT-base eval forward gives it (B=32 clips of 8 x 224^2,
+3. hold each eval kernel against its plain PyTorch version at the shapes
+   the Swin-B + BERT-base eval forward gives it (B=32 clips of 8 x 224^2,
    L=30), bf16, and time both with CUDA events;
-4. drive the port's main path -- make_embed_eval_step + run_retrieval_eval
-   over a few batches of seeded random clips and captions, with seeded
-   random weights -- and check the per-forward launch counts, finite
-   embeddings and the R@K metrics;
+4. drive the eval path -- make_embed_eval_step + run_retrieval_eval over a
+   few batches of seeded random clips and captions, with seeded random
+   weights -- and check the per-forward launch counts, finite embeddings
+   and the R@K metrics;
 5. run the same batches through the plain versions on the card, compare the
    embeddings (cosine per row) and print clips/s of both paths;
-6. print the kernel table as one JSON line, then the device line.
+6. hold each train kernel (K1 at the 12-frame window, K5, K2's stash form)
+   against its plain version at the shapes of the finetune step (B=16 clips
+   of 12 x 224^2, L=30), and time both;
+7. drive the train path -- make_retrieval_train_step (AdamW, cosine
+   warmup, clip at 15) for a few steps from the same seeded weights on
+   seeded batches -- and check the per-step launch counts and a finite
+   gradient on every parameter;
+8. run the same steps with the plain versions, compare step 1's loss,
+   grad_norm and per-tensor gradient cosine, print clips/s and peak memory
+   of both paths; with --profile, trace a few more steps of each path with
+   torch.profiler and print the device time by kernel family;
+9. print the kernel table as one JSON line (one row per kernel and path),
+   then the device line.
 
 Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 """
@@ -39,7 +52,24 @@ COS_MIN = 0.99                  # kernel-path vs plain-path embeddings, per row
 # bf16 (2^-8 relative) at different points -- the kernels keep fp32 where
 # the plain versions round (logits, pre-GELU hidden, MLP output) -- so
 # disagreements of one to a few bf16 ulps of the largest values are expected.
-TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 1e-2)}
+TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 1e-2),
+       "K5": (2e-2, 2e-2), "K2S": (2e-2, 2e-2),
+       # fp32 outputs, both sides in fp32 (summation order and rsqrtf apart):
+       # ~1e-7 of max|p| observed; each limit must stay below the error of the
+       # same values rounded to bf16 (checked), and rstd's below an eps of
+       # 1e-6 for 1e-5 at unit variance (~4.5e-6)
+       "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6)}
+# the retrieval finetune (bench.py's bench_finetune): B=16 clips of 12 frames
+TB, TT = 16, 12
+TRAIN_STEPS = 5
+OPTIM = dict(base_lr=1.2e-5, total_steps=1000, warmup_steps=10)
+GRAD_CLIP = 15.0
+# kernel path vs plain path at train step 1 (same weights, batch and dropout
+# draws): |loss_k - loss_p| / loss_p, the same for grad_norm, and the
+# per-tensor gradient cosine (min over tensors with a nonzero gradient; the
+# BERT key biases are left out: their gradient is zero in exact arithmetic,
+# softmax does not see q.b_k, so both paths hold only rounding noise there)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_COS_MIN = 5e-3, 5e-3, 0.995
 
 
 def check(cond: bool, msg: str) -> None:
@@ -116,19 +146,7 @@ def kernel_phase(cfg, dev):
     ids_extra = _shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))[:1]
     calls["K1"].append(((B, 196, 32, ids_extra), 0))
 
-    def record(key, name, label, out, ref, t_k, t_p, count):
-        err = (out.float() - ref.float()).abs().max().item()
-        scale = ref.float().abs().max().item()
-        atol, rtol = TOL[key]
-        ok = err <= atol + rtol * scale and bool(torch.isfinite(out).all())
-        print(f"{key} {name} {label}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
-              f"rel={err / scale:.2e} tol={atol + rtol * scale:.3e} kernel={t_k:.4f} ms "
-              f"plain={t_p:.4f} ms x{count}/forward {'OK' if ok else 'FAIL'}")
-        r = results.setdefault(key, {"name": name, "err": 0.0, "ms": 0.0, "plain_ms": 0.0})
-        r["err"] = max(r["err"], err)
-        r["ms"] += t_k * count
-        r["plain_ms"] += t_p * count
-        check(ok, f"{key} {label}: kernel disagrees with its plain version")
+    record = recorder(results, "forward")
 
     for (Bn, N, nH, ids), count in calls["K1"]:
         C = nH * 32
@@ -148,15 +166,8 @@ def kernel_phase(cfg, dev):
                f"mask={'yes' if ids is not None else 'no'}", out, ref,
                cuda_ms(k, 5), cuda_ms(p, 5), count)
 
-    def mlp_weights(C, H):
-        return (1 + randn(C, std=0.1, dtype=torch.float32), randn(C, std=0.1, dtype=torch.float32),
-                randn(H, C, std=C ** -0.5, dtype=torch.float32),
-                randn(H, std=0.1, dtype=torch.float32),
-                randn(C, H, std=H ** -0.5, dtype=torch.float32),
-                randn(C, std=0.1, dtype=torch.float32))
-
     for (rows, C), count in calls["K2"]:
-        x, w = randn(rows, C), mlp_weights(C, 4 * C)
+        x, w = randn(rows, C), mlp_weights(randn, C, 4 * C)
         k = lambda: ops.fused_ln_mlp_residual(x, *w, 1e-5, cfg.swin.gelu)   # noqa: E731
         p = lambda: ops.ln_mlp_residual_plain(x, *w, 1e-5, cfg.swin.gelu)   # noqa: E731
         record("K2", "fused_ln_mlp_residual", f"rows={rows} C={C}", k(), p(),
@@ -164,7 +175,7 @@ def kernel_phase(cfg, dev):
 
     for (rows, C), count in calls["K3"]:
         H = cfg.text_bert.intermediate_size
-        x, w = randn(rows, C), mlp_weights(C, H)
+        x, w = randn(rows, C), mlp_weights(randn, C, H)
         eps = cfg.text_bert.layer_norm_eps
         k = lambda: ops.fused_mlp_postln(x, *w, eps)   # noqa: E731
         p = lambda: ops.mlp_postln_plain(x, *w, eps)   # noqa: E731
@@ -180,6 +191,306 @@ def kernel_phase(cfg, dev):
         record("K4", "fused_layer_norm", f"rows={rows} C={C}", k(), p(),
                cuda_ms(k, 10), cuda_ms(p, 10), count)
     return results
+
+
+def recorder(results, per):
+    """record(key, name, label, out, ref, t_k, t_p, count): check one kernel
+    output against its plain version, print it, and add the times (count
+    calls per ``per``) to results[key]."""
+    import torch
+
+    def record(key, name, label, out, ref, t_k, t_p, count, part=None):
+        err = (out.float() - ref.float()).abs().max().item()
+        scale = ref.float().abs().max().item()
+        atol, rtol = TOL[f"{key} {part}" if f"{key} {part}" in TOL else key]
+        tol = atol + rtol * scale
+        ok = err <= tol and bool(torch.isfinite(out).all())
+        control = ""
+        if ref.dtype == torch.float32:
+            # the same values rounded to bf16: a limit above this would pass
+            # an output stored or summed in bf16
+            ctrl = (ref.bfloat16().float() - ref).abs().max().item()
+            control = f" bf16 control={ctrl:.3e}"
+            check(tol < ctrl, f"{key} {label}: limit {tol:.3e} does not separate a bf16 output "
+                              f"({ctrl:.3e})")
+        label = label if part is None else f"{label} {part}"
+        print(f"{key} {name} {label}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
+              f"rel={err / max(scale, 1e-30):.2e} tol={tol:.3e}{control} "
+              f"kernel={t_k:.4f} ms plain={t_p:.4f} ms x{count}/{per} {'OK' if ok else 'FAIL'}",
+              flush=True)
+        r = results.setdefault(key, {"name": name, "err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+        r["err"] = max(r["err"], err)
+        r["ms"] += t_k * count
+        r["plain_ms"] += t_p * count
+        check(ok, f"{key} {label}: kernel disagrees with its plain version")
+
+    return record
+
+
+def train_path_shapes(cfg):
+    """Per-step kernel calls of the finetune step: {kernel: [(args, count)]}.
+    K1 (forward) and K5 (backward) run once per Swin block, K2's stash form
+    once per block; LayerNorm and the BERT FFN stay plain in training."""
+    from clover_tpu_torch.models.swin3d import _shift_region_ids, effective_window
+
+    sw = cfg.swin
+    dims = (TT // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
+    shift = tuple(s // 2 for s in sw.window_size)
+    calls = {"K1": [], "K2S": []}
+    for i, depth in enumerate(sw.depths):
+        C, nH = sw.embed_dim * 2 ** i, sw.num_heads[i]
+        rows = TB * int(np.prod(dims))
+        window, sh = effective_window(dims, sw.window_size, shift)
+        N = int(np.prod(window))
+        ids = _shift_region_ids(dims, window, sh)
+        n_shifted = depth // 2 if ids is not None else 0
+        calls["K1"].append(((rows // N, N, nH, None), depth - n_shifted))
+        if n_shifted:
+            calls["K1"].append(((rows // N, N, nH, ids), n_shifted))
+        calls["K2S"].append(((rows, C), depth))
+        dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
+    return calls
+
+
+def train_kernel_phase(cfg, dev, results):
+    """K1 at the 12-frame window, K5 and K2's stash form against their plain
+    versions at the finetune step's shapes; times per train step."""
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.models.swin3d import _shift_region_ids
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    record = recorder(results, "step")
+    calls = train_path_shapes(cfg)
+    # the region mask at nH=32 too (stage 3 has no shifted block at 12 frames)
+    ids_extra = _shift_region_ids((6, 14, 14), (6, 7, 7), (0, 3, 3))[:1]
+    calls["K1"].append(((TB, 294, 32, ids_extra), 0))
+    scale = 32 ** -0.5
+    for (Bn, N, nH, ids), count in calls["K1"]:
+        C = nH * 32
+        qkv, grad = randn(Bn * N, 3 * C), randn(Bn * N, C)
+        bias = randn(nH, N, N, dtype=torch.float32)
+        rid = None if ids is None else torch.from_numpy(ids).to(dev)
+        label = f"Bn={Bn} N={N} nH={nH} mask={'yes' if ids is not None else 'no'}"
+        k = lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N)   # noqa: E731
+        p = lambda: ops.window_attention_plain(qkv, bias, rid, scale, nH, N)   # noqa: E731
+        record("K1", "flat2_window_attention", label, k(), p(), cuda_ms(k, 5), cuda_ms(p, 3),
+               count)
+        kb = lambda: ops.flat2_window_attention_bwd(   # noqa: E731
+            qkv, bias, rid, grad, scale, nH, N)
+        pb = lambda: ops.window_attention_bwd_plain(   # noqa: E731
+            qkv, bias, rid, grad, scale, nH, N)
+        (dqkv, dbias), (rdqkv, rdbias) = kb(), pb()
+        t_k, t_p = cuda_ms(kb, 5), cuda_ms(pb, 2)
+        record("K5", "flat2_window_attention_bwd", label, dqkv, rdqkv, t_k, t_p, count, "dqkv")
+        record("K5", "flat2_window_attention_bwd", label, dbias, rdbias, 0.0, 0.0, 0, "dbias")
+        del dqkv, dbias, rdqkv, rdbias
+
+    for (rows, C), count in calls["K2S"]:
+        x, w = randn(rows, C), mlp_weights(randn, C, 4 * C)
+        # DropPath's per-sample factor, repeated over each sample's tokens; the
+        # step runs every block but the first with one, so it is timed with
+        keep = (torch.rand(TB, generator=g, device=dev) < 0.9).float() / 0.9
+        for rs in (None, keep.repeat_interleave(rows // TB)):
+            label = f"rows={rows} C={C} row_scale={'yes' if rs is not None else 'no'}"
+            k = lambda: ops.fused_ln_mlp_residual_stash(   # noqa: E731
+                x, *w, 1e-5, cfg.swin.gelu, rs)
+            p = lambda: ops.ln_mlp_residual_plain(   # noqa: E731
+                x, *w, 1e-5, cfg.swin.gelu, row_scale=rs, want_stash=True)
+            (out, stash), (ref, rstash) = k(), p()
+            t_k, t_p = (cuda_ms(k, 5), cuda_ms(p, 5)) if rs is not None else (0.0, 0.0)
+            n = count if rs is not None else 0
+            record("K2S", "fused_ln_mlp_residual_stash", label, out, ref, t_k, t_p, n, "out")
+            for part, a, b in zip(("z", "mean", "rstd"), stash, rstash):
+                record("K2S", "fused_ln_mlp_residual_stash", label, a, b, 0.0, 0.0, 0, part)
+
+
+def mlp_weights(randn, C, H):
+    import torch
+
+    return (1 + randn(C, std=0.1, dtype=torch.float32), randn(C, std=0.1, dtype=torch.float32),
+            randn(H, C, std=C ** -0.5, dtype=torch.float32),
+            randn(H, std=0.1, dtype=torch.float32),
+            randn(C, H, std=H ** -0.5, dtype=torch.float32),
+            randn(C, std=0.1, dtype=torch.float32))
+
+
+def make_train_batches(cfg, dev):
+    """Seeded host-s2d uint8 clips (TB, 1, 6, 56, 56, 96) and captions of
+    varied length, on the card."""
+    import torch
+
+    from clover_tpu_torch.ops.preprocess import space_to_depth_host
+
+    rng = np.random.default_rng(SEED + 2)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        frames = rng.integers(0, 256, size=(TB, TT, S, S, 3), dtype=np.uint8)
+        lengths = rng.integers(8, L + 1, size=TB)
+        tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(TB, L))
+        tok[:, 0] = 101                                   # [CLS]
+        mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+        batches.append({
+            "imgs": torch.from_numpy(space_to_depth_host(frames, cfg.swin.patch_size)[:, None]),
+            "token_ids": torch.from_numpy(tok * mask), "input_mask": torch.from_numpy(mask)})
+    return [{k: v.to(dev) for k, v in b.items()} for b in batches]
+
+
+def make_train_step(model, dev):
+    """The finetune step as a user builds it: make_optimizer + TrainState +
+    make_retrieval_train_step. -> (state, step, dropout generator)."""
+    import torch
+
+    from clover_tpu_torch.engine import TrainState, make_optimizer, make_retrieval_train_step
+
+    optimizer, schedule = make_optimizer(model, **OPTIM)
+    state = TrainState.create(model, optimizer, schedule)
+    step = make_retrieval_train_step(model, grad_clip_norm=GRAD_CLIP)
+    return state, step, torch.Generator(device=dev).manual_seed(SEED)
+
+
+def drive_train_path(model, batches, dev):
+    """The finetune path for TRAIN_STEPS steps. -> (metrics per step, step
+    1's gradients, seconds per step, peak bytes)."""
+    import torch
+
+    state, step, generator = make_train_step(model, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    metrics, seconds, grads1 = [], [], None
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, batch, generator)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        metrics.append({k: v.item() for k, v in m.items()})
+        for name, p in model.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all()),
+                  f"step {state.step}: {name} has no finite gradient")
+        if grads1 is None:
+            grads1 = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    model.zero_grad(set_to_none=True)
+    del state
+    return metrics, grads1, seconds, peak
+
+
+PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wins
+    ("K1 window attention", ("window_attention_kernel",)),
+    ("K5 window-attention backward", ("window_attention_bwd_kernel", "dbias_finish")),
+    ("K2 stash form", ("mlp_kernel",)),
+    ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
+    ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
+    ("reductions, softmax, norms", ("reduce", "softmax", "norm")),
+    ("copies, casts, gathers, elementwise", ("",)),
+)
+
+
+def profile_train_path(model, batches, dev, wall_ms: float, label: str) -> None:
+    """Device time of the train step by kernel family: torch.profiler over
+    the batches after two warm-up steps, against the unprofiled step time
+    wall_ms of the train phase (idle share = 1 - busy / wall)."""
+    import torch
+    from torch.autograd import DeviceType
+
+    state, step, generator = make_train_step(model, dev)
+    for batch in batches[:2]:
+        state, _ = step(state, batch, generator)
+    torch.cuda.synchronize()
+    traced = batches[2:]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for batch in traced:
+            state, _ = step(state, batch, generator)
+        torch.cuda.synchronize()
+    by_name = {}   # kernel name -> [ms per step, launches per step]
+    for evt in prof.events():
+        # kernels only: user annotations (the optimizer's step range) also
+        # show on the device timeline but overlap the kernels
+        if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
+            continue
+        acc = by_name.setdefault(evt.name, [0.0, 0.0])
+        acc[0] += evt.time_range.elapsed_us() / 1e3 / len(traced)
+        acc[1] += 1 / len(traced)
+    per_family = {}
+    for name, (t, _) in by_name.items():
+        fam = next(f for f, keys in PROFILE_FAMILIES if any(k in name.lower() for k in keys))
+        per_family[fam] = per_family.get(fam, 0.0) + t
+    busy = sum(per_family.values())
+    print(f"profile, {label} path, {len(traced)} steps: device busy {busy:.2f} ms per step, "
+          f"unprofiled wall {wall_ms:.2f} ms (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
+          f"{round(sum(n for _, n in by_name.values()))} launches per step", flush=True)
+    for fam, t in sorted(per_family.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam:40s} {t:9.3f} ms  {100 * t / busy:5.1f}%")
+    print("  largest kernels (ms per step, calls per step, name):")
+    for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {t:9.3f} {round(n):5d}  {name[:110]}")
+    model.zero_grad(set_to_none=True)
+
+
+def train_phase(model, plain, cfg, dev, card, profile: bool):
+    """Drive the train path with the kernels and with the plain versions from
+    the same weights; check launches, gradients and the agreement; with
+    ``profile``, then trace each path's steps. -> the launch counts of the
+    kernel path's run."""
+    import torch
+
+    from clover_tpu_torch import ops
+
+    batches = make_train_batches(cfg, dev)
+    wrappers = {"K1": ops.flat2_window_attention, "K5": ops.flat2_window_attention_bwd,
+                "K2S": ops.fused_ln_mlp_residual_stash, "K2": ops.fused_ln_mlp_residual,
+                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm}
+    ops.reset_launch_counts()
+    k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    per_step = {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0}
+    print(f"train launches over {TRAIN_STEPS} steps: {counts} (expected per step: {per_step})",
+          flush=True)
+    for k, n in per_step.items():
+        check(counts[k] == n * TRAIN_STEPS,
+              f"train {k}: {counts[k]} launches, expected {n * TRAIN_STEPS}")
+
+    ops.reset_launch_counts()
+    p_metrics, p_grads, p_sec, p_peak = drive_train_path(plain, batches, dev)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain train path launched a kernel")
+    for i, (km, pm) in enumerate(zip(k_metrics, p_metrics)):
+        print(f"train step {i + 1}: kernels {km} plain {pm}")
+        check(all(np.isfinite(v) for v in km.values()), f"step {i + 1}: non-finite metric {km}")
+    k1, p1 = k_metrics[0], p_metrics[0]
+    loss_rel = abs(k1["loss"] - p1["loss"]) / abs(p1["loss"])
+    gnorm_rel = abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"])
+    cos = {}
+    for name, g in k_grads.items():
+        if name.endswith("attention.key.bias"):
+            continue
+        gp = p_grads[name]
+        if gp.norm() > 0 and g.norm() > 0:
+            cos[name] = torch.nn.functional.cosine_similarity(g.reshape(1, -1),
+                                                              gp.reshape(1, -1)).item()
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    print(f"train step 1, kernels vs plain: loss rel {loss_rel:.3e} (bound {TRAIN_LOSS_RTOL}), "
+          f"grad_norm rel {gnorm_rel:.3e} (bound {TRAIN_GNORM_RTOL}), min gradient cosine "
+          f"{worst[0][1]:.6f} over {len(cos)} tensors (bound {TRAIN_COS_MIN}); lowest {worst}",
+          flush=True)
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train loss differs: {loss_rel:.3e}")
+    check(gnorm_rel <= TRAIN_GNORM_RTOL, f"train grad_norm differs: {gnorm_rel:.3e}")
+    check(worst[0][1] >= TRAIN_COS_MIN, f"train gradients differ: {worst}")
+    steady = lambda sec: TB * (len(sec) - 2) / sum(sec[2:])   # noqa: E731  (2 warm-up steps)
+    print(f"train clips/s (B={TB}, {TT}x{S}^2, L={L}, steps 3-{TRAIN_STEPS}): kernels "
+          f"{steady(k_sec):.2f} plain {steady(p_sec):.2f}; step seconds kernels "
+          f"{[round(t, 4) for t in k_sec]} plain {[round(t, 4) for t in p_sec]}; peak memory "
+          f"kernels {k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}",
+          flush=True)
+    if profile:
+        profile_train_path(model, batches, dev, TB * 1e3 / steady(k_sec), "kernel")
+        profile_train_path(plain, batches, dev, TB * 1e3 / steady(p_sec), "plain")
+    return counts
 
 
 def make_batches(cfg):
@@ -241,9 +552,16 @@ def timed_embeddings(model, cfg, batches, dev):
     return torch.cat(vs).float(), torch.cat(ts).float(), clips_per_s
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Smoke run of clover_tpu_torch on one CUDA card.")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the train phase, trace each path's train steps with "
+                         "torch.profiler and print the device time by kernel family")
+    profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
               file=sys.stderr)
@@ -312,15 +630,32 @@ def main() -> int:
     print(f"clips/s (B={B}, {T}x{S}^2, L={L}, {N_BATCHES} batches, forward only): "
           f"kernels {cps:.2f} plain {p_cps:.2f} on {card}", flush=True)
 
+    # the finetune step; the eval models' weights are still the seeded ones
+    del v, t, pv, pt
+    train = {}
+    train_kernel_phase(cfg, dev, train)
+    model.train()
+    plain.train()
+    train_counts = train_phase(model, plain, cfg, dev, card, profile)
+
+    # one row per kernel and path: launches over the path's run, ms summed
+    # over one eval forward or one train step (K1 runs on both paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
                "K2": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
                "K3": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:245"),
-               "K4": ("csrc/layer_norm.cu", "clover_tpu/ops/layer_norm.py:64")}
-    table = [{"name": results[k]["name"], "route": "cuda",
+               "K4": ("csrc/layer_norm.cu", "clover_tpu/ops/layer_norm.py:64"),
+               "K5": ("csrc/window_attention_bwd.cu", "clover_tpu/ops/window_attention.py:2499"),
+               "K2S": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565")}
+    rows = [(k, results, counts, f"eval, ms per forward, launches over {N_BATCHES} forwards")
+            for k in ("K1", "K2", "K3", "K4")]
+    rows += [(k, train, train_counts,
+              f"train, ms per step, launches over {TRAIN_STEPS} steps")
+             for k in ("K1", "K5", "K2S")]
+    table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + sources[k][0], "replaces": sources[k][1],
-              "launches": counts[k], "max_abs_err": results[k]["err"],
-              "ms": results[k]["ms"], "plain_ms": results[k]["plain_ms"]}
-             for k in ("K1", "K2", "K3", "K4")]
+              "launches": n[k], "max_abs_err": res[k]["err"],
+              "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"], "path": path}
+             for k, res, n, path in rows]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,17 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// reductions over the four lanes of an mma accumulator row (lanes 4g .. 4g+3)
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // mma.sync / ldmatrix building blocks (bf16 operands, fp32 accumulators)
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));

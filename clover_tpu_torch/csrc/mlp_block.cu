@@ -1,12 +1,18 @@
 // K2 and K3: the transformer MLP half-block with the 4C hidden kept on chip.
 //
-//   K2 (pre-LN, Swin):  out = x + gelu(LN(x) W1^T + b1) W2^T + b2
+//   K2 (pre-LN, Swin):  out = x + s * (gelu(LN(x) W1^T + b1) W2^T + b2)
 //   K3 (post-LN, BERT): out = LN(x + gelu(x W1^T + b1) W2^T + b2)
 //
 // K2 replaces clover_tpu/ops/mlp_block.py::_forward (_kernel, behind
 // fused_ln_mlp_residual); K3 replaces ::_forward_postln (_kernel_postln,
 // behind fused_mlp_postln). W1 is the torch Linear weight (H, C), W2 is
-// (C, H), both bf16; biases and LN affine are fp32.
+// (C, H), both bf16; biases and LN affine are fp32. K2's training form
+// (_kernel_stash / _kernel_stash_scaled) takes the optional per-row fp32
+// scale s (DropPath's keep / keep_prob; 1 when absent) and stashes what the
+// backward needs instead of recomputing it: z = LN(x) W1^T + b1 as bf16
+// (rows, H), written from the fp32 accumulator before GELU, and the LN
+// mean and rstd as fp32 (rows,). The stash costs one bf16 write of the
+// (rows, H) hidden, which the eval form never makes.
 //
 // Bound on the H100: the two products are 4*rows*C*H flops against
 // ~4*rows*C bytes of activations, so the kernel is compute-bound on the
@@ -78,13 +84,17 @@ struct Tiling {
 // A = LN(x) (kLN) or x; the block's hidden columns are
 // [blockIdx.y * h_block, (blockIdx.y + 1) * h_block). With partial == nullptr
 // it writes out = x + acc + b2, else the fp32 partial[blockIdx.y] = acc.
+// The stash outputs (z, ln_mean, ln_rstd) and row_scale are optional (nullptr:
+// not written / 1); they exist only with kLN and one hidden split.
 template <int R, int C, bool kLN>
 __global__ void __launch_bounds__(kThreads, 1)
 mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
            const float* __restrict__ ln_b, const bf16* __restrict__ w1,
            const float* __restrict__ b1, const bf16* __restrict__ w2,
-           const float* __restrict__ b2, bf16* __restrict__ out, float* __restrict__ partial,
-           int rows, int H, int h_block, float eps, int tanh_approx) {
+           const float* __restrict__ b2, const float* __restrict__ row_scale,
+           bf16* __restrict__ out, float* __restrict__ partial, bf16* __restrict__ z,
+           float* __restrict__ ln_mean, float* __restrict__ ln_rstd, int rows, int H,
+           int h_block, float eps, int tanh_approx) {
   using T = Tiling<R, C>;
   constexpr int MT = T::mt, NT2 = T::nt2, per_chunk = T::n1 + T::n2;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -147,6 +157,10 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
       sq += (v.x - mean) * (v.x - mean) + (v.y - mean) * (v.y - mean);
     }
     const float inv = rsqrtf(warp_sum(sq) / C + eps);
+    if (ln_mean != nullptr && lane == 0) {
+      ln_mean[gr] = mean;
+      ln_rstd[gr] = inv;
+    }
     for (int c = lane; c < C / 2; c += 32) {
       const float2 v = __bfloat1622float2(src[c]);
       dst[c] = __floats2bfloat162_rn((v.x - mean) * inv * ln_w[2 * c] + ln_b[2 * c],
@@ -207,6 +221,17 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
           for (int n = 0; n < 4; ++n) {
             const int col = wn * 32 + n * 8 + tq * 2;
             const float2 bb = *reinterpret_cast<const float2*>(b1 + j0 + col);
+            if (z != nullptr) {  // the pre-GELU hidden, rows g and g+8 of the m16 tile
+              const long gr = row0 + wm * (R / 2) + m * 16 + g;
+              if (gr < rows) {
+                *reinterpret_cast<unsigned*>(z + gr * H + j0 + col) =
+                    pack_bf16(hacc[m][n][0] + bb.x, hacc[m][n][1] + bb.y);
+              }
+              if (gr + 8 < rows) {
+                *reinterpret_cast<unsigned*>(z + (gr + 8) * H + j0 + col) =
+                    pack_bf16(hacc[m][n][2] + bb.x, hacc[m][n][3] + bb.y);
+              }
+            }
             bf16* hr = h_s + (wm * (R / 2) + m * 16 + g) * T::ldh + col;
             *reinterpret_cast<unsigned*>(hr) =
                 pack_bf16(gelu(hacc[m][n][0] + bb.x, tanh_approx),
@@ -250,6 +275,7 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
     for (int hh = 0; hh < 2; ++hh) {
       const long gr = row0 + wm * (R / 2) + m * 16 + g + hh * 8;
       if (gr >= rows) continue;
+      const float rs = row_scale != nullptr ? row_scale[gr] : 1.f;
 #pragma unroll
       for (int n = 0; n < NT2; ++n) {
         const int col = wn * (C / 4) + n * 8 + tq * 2;
@@ -262,7 +288,7 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
               bf16x2_to_float2(*reinterpret_cast<const unsigned*>(x + gr * C + col));
           const float2 bb = *reinterpret_cast<const float2*>(b2 + col);
           *reinterpret_cast<unsigned*>(out + gr * C + col) =
-              pack_bf16(xv.x + (v0 + bb.x), xv.y + (v1 + bb.y));
+              pack_bf16(xv.x + (v0 + bb.x) * rs, xv.y + (v1 + bb.y) * rs);
         }
       }
     }
@@ -317,8 +343,8 @@ postln_finish_kernel(const bf16* __restrict__ x, const float* __restrict__ parti
 }
 
 struct Args {
-  const void *x, *ln_w, *ln_b, *w1, *b1, *w2, *b2;
-  void* out;
+  const void *x, *ln_w, *ln_b, *w1, *b1, *w2, *b2, *row_scale;
+  void *out, *z, *ln_mean, *ln_rstd;
   int rows, H;
   float eps;
   int tanh_approx;
@@ -335,8 +361,9 @@ int launch_tiles(const Args& a, float* partial, int splits) {
   const dim3 grid((a.rows + R - 1) / R, splits);
   mlp_kernel<R, C, kLN><<<grid, kThreads, T::smem, a.stream>>>(
       (const bf16*)a.x, (const float*)a.ln_w, (const float*)a.ln_b, (const bf16*)a.w1,
-      (const float*)a.b1, (const bf16*)a.w2, (const float*)a.b2, (bf16*)a.out, partial, a.rows,
-      a.H, a.H / splits, a.eps, a.tanh_approx);
+      (const float*)a.b1, (const bf16*)a.w2, (const float*)a.b2, (const float*)a.row_scale,
+      (bf16*)a.out, partial, (bf16*)a.z, (float*)a.ln_mean, (float*)a.ln_rstd, a.rows, a.H,
+      a.H / splits, a.eps, a.tanh_approx);
   return (int)cudaGetLastError();
 }
 
@@ -353,13 +380,20 @@ int launch_ln_mlp(const Args& a, int C) {
 }  // namespace
 }  // namespace clover
 
+// row_scale (rows,) fp32 or nullptr; z (rows, H) bf16 and ln_mean / ln_rstd
+// (rows,) fp32 are written when z is not nullptr (the training form).
 extern "C" int clover_ln_mlp_residual(const void* x, const void* ln_w, const void* ln_b,
                                       const void* w1, const void* b1, const void* w2,
-                                      const void* b2, void* out, int rows, int C, int H,
+                                      const void* b2, const void* row_scale, void* out, void* z,
+                                      void* ln_mean, void* ln_rstd, int rows, int C, int H,
                                       float eps, int tanh_approx, void* stream) {
-  if (rows <= 0 || H <= 0 || H % clover::kHc) return (int)cudaErrorInvalidValue;
-  return clover::launch_ln_mlp({x, ln_w, ln_b, w1, b1, w2, b2, out, rows, H, eps, tanh_approx,
-                                (cudaStream_t)stream}, C);
+  if (rows <= 0 || H <= 0 || H % clover::kHc ||
+      (z != nullptr && (ln_mean == nullptr || ln_rstd == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return clover::launch_ln_mlp({x, ln_w, ln_b, w1, b1, w2, b2, row_scale, out, z, ln_mean,
+                                ln_rstd, rows, H, eps, tanh_approx, (cudaStream_t)stream},
+                               C);
 }
 
 // The hidden is split over `splits` blocks per row block; partial is their
@@ -372,7 +406,9 @@ extern "C" int clover_mlp_postln(const void* x, const void* ln_w, const void* ln
   if (rows <= 0 || C != 768 || H <= 0 || splits <= 0 || H % (splits * kHc)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{x, ln_w, ln_b, w1, b1, w2, b2, out, rows, H, eps, 0, (cudaStream_t)stream};
+  // no row scale, no stash
+  const Args a{x,   ln_w, ln_b, w1, b1, w2,  b2, nullptr, out, nullptr, nullptr, nullptr,
+               rows, H,    eps,  0,  (cudaStream_t)stream};
   const int rc = launch_tiles<32, 768, false>(a, (float*)partial, splits);
   if (rc != 0) return rc;
   postln_finish_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(

@@ -1,2 +1,8 @@
 from clover_tpu_torch.engine.eval_loop import run_retrieval_eval  # noqa: F401
-from clover_tpu_torch.engine.steps import make_embed_eval_step  # noqa: F401
+from clover_tpu_torch.engine.optim import make_optimizer, weight_decay_mask  # noqa: F401
+from clover_tpu_torch.engine.steps import (  # noqa: F401
+    ema_momentum_schedule,
+    make_embed_eval_step,
+    make_retrieval_train_step,
+)
+from clover_tpu_torch.engine.train_state import TrainState  # noqa: F401

@@ -1,10 +1,87 @@
-"""Eval step factories (port of ``clover_tpu/engine/steps.py``)."""
+"""Train and eval step factories (port of ``clover_tpu/engine/steps.py``).
+
+A train step runs the forward in ``train()`` mode with dropout drawn from a
+generator derived from (seed, step) -- the counterpart of
+``jax.random.fold_in(rng, state.step)`` -- the loss, the backward, one
+global gradient norm that serves both the clip and the ``grad_norm``
+metric, and the AdamW update. Parameters and optimizer state are fp32; the
+model computes in its own dtype.
+"""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+
+from clover_tpu_torch.engine.train_state import TrainState
+from clover_tpu_torch.losses import retrieval_loss, total_loss
+
+
+def ema_momentum_schedule(kind: str = "constant", base: float = 0.9998,
+                          ramp_steps: int = 2000) -> Callable[[int], float]:
+    """EMA momentum schedules (reference ExpMomentumEMAHook /
+    LinearMomentumEMAHook)."""
+
+    def fn(step: int) -> float:
+        if kind == "constant":
+            return base
+        if kind == "exp":
+            return 1.0 - (1.0 - base) * (float(np.exp(-step / ramp_steps)) + 1.0)
+        if kind == "linear":
+            return min(base, (1.0 + step) / (ramp_steps + step))
+        raise ValueError(kind)
+
+    return fn
+
+
+def fold_in(generator: torch.Generator, step: int) -> torch.Generator:
+    """A generator on ``generator``'s device seeded from (its seed, step)."""
+    seed = np.random.SeedSequence([generator.initial_seed(), step]).generate_state(1, np.uint64)
+    return torch.Generator(device=generator.device).manual_seed(int(seed[0]) >> 1)
+
+
+def _finalize(state: TrainState, losses: Dict[str, torch.Tensor], ema_momentum,
+              grad_clip_norm: Optional[float]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    tot = total_loss(losses)
+    if callable(ema_momentum):
+        ema_momentum = ema_momentum(state.step)
+    grads = [p.grad for p in state.model.parameters()]
+    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if grad_clip_norm is not None:
+        # optax.clip_by_global_norm's select(norm < max, g, g / norm * max)
+        keep = gnorm < grad_clip_norm
+        for g in grads:
+            g.copy_(torch.where(keep, g, g / gnorm * grad_clip_norm))
+    state.apply_gradients(ema_momentum)
+    metrics = dict(losses)
+    metrics["loss"] = tot
+    metrics["grad_norm"] = gnorm
+    return state, metrics
+
+
+def make_retrieval_train_step(model, temperature: float = 0.05, cos_sim: bool = True,
+                              ema_momentum=None,
+                              grad_clip_norm: Optional[float] = None) -> Callable:
+    """Retrieval-finetune step: ``step(state, batch, generator) -> (state,
+    metrics)`` with metrics ``retrieval_nce_loss``, ``loss`` and
+    ``grad_norm`` (0-d tensors). ``batch`` holds ``imgs``, ``token_ids`` and
+    ``input_mask`` on the model's device; ``generator`` is the run's seeded
+    generator on that device. The state is updated in place. After the
+    step the parameters' ``.grad`` hold the gradients the update used."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        v, t = model.forward_train(batch, fold_in(generator, state.step))
+        losses = retrieval_loss(v, t, temperature=temperature, cos_sim=cos_sim)
+        total_loss(losses).backward()
+        return _finalize(state, {k: l.detach() for k, l in losses.items()}, ema_momentum,
+                         grad_clip_norm)
+
+    return step
 
 
 def make_embed_eval_step(model) -> Callable:

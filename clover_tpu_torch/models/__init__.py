@@ -1,5 +1,9 @@
 from clover_tpu_torch.models.bert import BertConfig, BertTextEncoder  # noqa: F401
-from clover_tpu_torch.models.bridge import load_jax_params, state_from_jax  # noqa: F401
+from clover_tpu_torch.models.bridge import (  # noqa: F401
+    load_jax_params,
+    opt_state_from_jax,
+    state_from_jax,
+)
 from clover_tpu_torch.models.finetune import CloverFinetune, FinetuneConfig  # noqa: F401
 from clover_tpu_torch.models.heads import NCEHeadForMM  # noqa: F401
 from clover_tpu_torch.models.layers import init_params  # noqa: F401

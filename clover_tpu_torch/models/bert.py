@@ -1,11 +1,14 @@
-"""BERT text tower, eval forward (port of ``clover_tpu/models/bert.py``).
+"""BERT text tower (port of ``clover_tpu/models/bert.py``).
 
 Post-LN encoder layers with HF semantics: additive -10000 key mask, erf
-GELU, LayerNorm eps 1e-12. The embedding norm and the attention norms are
-the forward-only LayerNorm kernel sites (K4); the FFN half is the post-LN
-MLP kernel (K3). Self-attention itself stays plain PyTorch, as it is plain
-XLA in the JAX package. Parameter names follow the JAX tree
-(``embeddings``, ``encoder.layer_{i}.{attention.{query,key,value},
+GELU, LayerNorm eps 1e-12. In eval the embedding norm and the attention
+norms are the forward-only LayerNorm kernel sites (K4) and the FFN half is
+the post-LN MLP kernel (K3). In training (``train()`` mode) the JAX package
+keeps all of them in XLA, so they run plain here, with dropout on the
+embeddings, the attention probabilities and the hidden outputs drawn from
+the generator passed to ``forward``. Self-attention itself stays plain
+PyTorch, as it is plain XLA in the JAX package. Parameter names follow the
+JAX tree (``embeddings``, ``encoder.layer_{i}.{attention.{query,key,value},
 attention_output, attention_norm, intermediate, output, output_norm}``).
 """
 
@@ -16,9 +19,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import LayerNorm, Linear
+from clover_tpu_torch.models.layers import LayerNorm, Linear, dropout
 from clover_tpu_torch.ops.mlp_block import fused_mlp_postln, mlp_postln_plain
 
 # additive fill for padded keys (transformers==4.6.1, the reference's pin)
@@ -27,7 +31,7 @@ ATTENTION_MASK_FILL = -10000.0
 
 @dataclasses.dataclass(frozen=True)
 class BertConfig:
-    """The fields of ``clover_tpu.models.bert.BertConfig`` the eval forward reads."""
+    """The fields of ``clover_tpu.models.bert.BertConfig`` the port reads."""
 
     vocab_size: int = 30522
     hidden_size: int = 768
@@ -37,6 +41,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     layer_norm_eps: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
 
 
 def extend_attention_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -56,12 +62,14 @@ class BertEmbeddings(nn.Module):
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, cfg.hidden_size)
         self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, kernel=kernels)
+        self.drop = cfg.hidden_dropout
 
-    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, dtype: torch.dtype,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
         x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)[None]
              + self.token_type_embeddings.weight[0])
-        return self.norm(x.to(dtype))
+        return dropout(self.norm(x.to(dtype)), self.drop, generator, self.training)
 
 
 class BertSelfAttention(nn.Module):
@@ -72,8 +80,10 @@ class BertSelfAttention(nn.Module):
         self.query = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
         self.key = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
         self.value = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
+        self.drop = cfg.attention_dropout
 
-    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, S, C = x.shape
 
         def heads(t):
@@ -84,12 +94,13 @@ class BertSelfAttention(nn.Module):
         if attn_bias is not None:
             logits = logits + attn_bias.to(logits.dtype)
         probs = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+        probs = dropout(probs, self.drop, generator, self.training)
         return torch.matmul(probs, v).transpose(1, 2).reshape(B, S, C)
 
 
 class BertLayer(nn.Module):
-    """Post-LN layer, eval branch: attention + residual + LN, then the fused
-    FFN half LN(x + fc2(gelu(fc1(x))))."""
+    """Post-LN layer: attention + dropout + residual + LN, then the FFN half
+    LN(x + dropout(fc2(gelu(fc1(x))))), fused (K3) in eval."""
 
     def __init__(self, cfg: BertConfig, kernels: bool = True):
         super().__init__()
@@ -102,10 +113,17 @@ class BertLayer(nn.Module):
         self.intermediate = Linear(C, cfg.intermediate_size, init="normal")
         self.output = Linear(cfg.intermediate_size, C, init="normal")
         self.output_norm = LayerNorm(C, cfg.layer_norm_eps)
+        self.drop = cfg.hidden_dropout
 
-    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
-        attn = self.attention_output(self.attention(x, attn_bias))
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        attn = self.attention_output(self.attention(x, attn_bias, generator))
+        attn = dropout(attn, self.drop, generator, self.training)
         x = self.attention_norm(x + attn)
+        if self.training:   # the JAX train path keeps the FFN in XLA (bert.py:196-205)
+            h = self.intermediate(x)
+            h = self.output(F.gelu(h.float()).to(h.dtype))
+            return self.output_norm(x + dropout(h, self.drop, generator, True))
         op = fused_mlp_postln if self.kernels else mlp_postln_plain
         C = x.shape[-1]
         out = op(x.reshape(-1, C), self.output_norm.weight, self.output_norm.bias,
@@ -121,9 +139,10 @@ class BertEncoder(nn.Module):
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(cfg, kernels))
 
-    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attn_bias)
+            x = getattr(self, f"layer_{i}")(x, attn_bias, generator)
         return x
 
 
@@ -137,9 +156,9 @@ class BertTextEncoder(nn.Module):
         self.embeddings = BertEmbeddings(cfg, kernels)
         self.encoder = BertEncoder(cfg, kernels)
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if attention_mask is None:
             attention_mask = torch.ones_like(input_ids)
-        x = self.embeddings(input_ids, self.dtype)
-        return self.encoder(x, extend_attention_mask(attention_mask))
+        x = self.embeddings(input_ids, self.dtype, generator)
+        return self.encoder(x, extend_attention_mask(attention_mask), generator)

@@ -2,7 +2,9 @@
 
 Input is the tree ``clover_tpu`` models produce (``model.init(...)`` or
 its ``["params"]``), as nested dicts of numpy arrays (``jax.device_get``).
-Leaf rules:
+The same rules carry a gradient tree and optax's AdamW moments
+(``opt_state_from_jax``), so a run resumed from a JAX train state goes on
+in the port. Leaf rules:
 
 - Dense ``kernel`` (in, out) -> ``Linear.weight`` (out, in), except the
   patch embed's ``proj``, which keeps its (pd*ph*pw*C, E) layout;
@@ -20,6 +22,8 @@ from typing import Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from clover_tpu_torch.models.layers import LayerNorm
 
 _RENAME = {"scale": "weight", "embedding": "weight"}
 
@@ -67,3 +71,57 @@ def load_jax_params(model: nn.Module, params: Mapping) -> None:
         if arr.shape != tuple(p.shape):
             raise ValueError(f"{key}: JAX shape {arr.shape}, port shape {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
+
+
+def jax_leaf_paths(model: nn.Module) -> Dict[str, Tuple[str, ...]]:
+    """{port parameter name: its leaf path in the JAX tree}, the inverse of
+    the leaf rules: a ``weight`` is ``kernel`` (Linear, the patch embed's
+    ``proj``), ``scale`` (LayerNorm) or ``embedding`` (nn.Embedding)."""
+    paths = {}
+    for mod_name, mod in model.named_modules():
+        leaf = ("scale" if isinstance(mod, LayerNorm) else
+                "embedding" if isinstance(mod, nn.Embedding) else "kernel")
+        for name, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{name}" if mod_name else name
+            paths[key] = tuple(mod_name.split(".") if mod_name else ()) + (
+                leaf if name == "weight" else name,)
+    return paths
+
+
+def _adam_state(opt_state):
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an optax state."""
+    if all(hasattr(opt_state, a) for a in ("count", "mu", "nu")):
+        return opt_state
+    children = (opt_state if isinstance(opt_state, (tuple, list)) else
+                [getattr(opt_state, "inner_state", None)])
+    for child in children:
+        if child is not None and not isinstance(child, (np.ndarray, np.generic)):
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+@torch.no_grad()
+def opt_state_from_jax(opt_state, model: nn.Module, optimizer: torch.optim.Optimizer) -> int:
+    """Carry optax's AdamW state (``make_optimizer``'s chain, as numpy via
+    ``jax.device_get``) into ``optimizer``, a ``torch.optim.AdamW`` over
+    ``model``'s parameters: ``mu`` / ``nu`` become ``exp_avg`` /
+    ``exp_avg_sq`` through the leaf rules, ``count`` every parameter's
+    ``step``. -> the count, which is the train state's step."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no AdamW moments (count, mu, nu) in the optax state")
+    mu, nu = state_from_jax(adam.mu), state_from_jax(adam.nu)
+    own = dict(model.named_parameters())
+    if own.keys() != mu.keys() or own.keys() != nu.keys():
+        raise KeyError(f"moments do not match the parameters: "
+                       f"{sorted(own.keys() ^ mu.keys())[:5]}")
+    count = int(np.asarray(adam.count))
+    for key, p in own.items():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": torch.tensor(mu[key]).to(p.device, p.dtype),
+            "exp_avg_sq": torch.tensor(nu[key]).to(p.device, p.dtype),
+        }
+    return count

@@ -1,9 +1,10 @@
 """CloverFinetune for ``task='retrieval'`` (port of
 ``clover_tpu/models/finetune.py``): Swin video tower + BERT text tower +
 ``NCEHeadForMM``. ``forward_test`` is the retrieval eval; ``forward_video``
-and ``forward_text`` are the same towers split for serving.
+and ``forward_text`` are the same towers split for serving;
+``forward_train`` is the retrieval finetune's forward (``train()`` mode).
 
-``kernels=True`` runs the four CUDA kernels on a CUDA device (a CPU tensor
+``kernels=True`` runs the CUDA kernels on a CUDA device (a CPU tensor
 always takes the plain versions); ``kernels=False`` runs the plain PyTorch
 versions everywhere, the reference the kernels are held against.
 """
@@ -44,8 +45,9 @@ class CloverFinetune(nn.Module):
                                      config.img_hidden_dim, config.vts_embed_dim)
 
     def _visual_feat(self, imgs: torch.Tensor, n_text: int,
-                     bias_cache: Optional[Dict[str, torch.Tensor]]) -> torch.Tensor:
-        feat = self.backbone(imgs.to(self.dtype), bias_cache)
+                     bias_cache: Optional[Dict[str, torch.Tensor]],
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = self.backbone(imgs.to(self.dtype), bias_cache, generator)
         if feat.shape[0] != n_text:
             # multi-clip inputs: mean-pool clip features (reference :73-75)
             feat = feat.reshape((n_text, -1) + feat.shape[1:]).mean(dim=1)
@@ -72,4 +74,20 @@ class CloverFinetune(nn.Module):
         input_mask = input_mask.reshape((-1,) + input_mask.shape[-1:])
         visual_feat = self._visual_feat(imgs, B, bias_cache)
         text_hidden = self.text_backbone(token_ids, input_mask)
+        return self.ssl_head(visual_feat, text_hidden)
+
+    def forward_train(self, batch: Dict[str, torch.Tensor],
+                      generator: Optional[torch.Generator] = None):
+        """Retrieval finetune forward (reference collate contract): ``imgs``
+        (B, n_clips, D', H', W', K) host s2d clips, flattened for the backbone
+        and their features mean-pooled back to B; ``token_ids`` and
+        ``input_mask`` (B, [n_cand,] L), flattened. Dropout and DropPath draw
+        from ``generator`` in ``train()`` mode. -> (video emb, text emb)."""
+        imgs = batch["imgs"]
+        B = imgs.shape[0]
+        imgs = imgs.reshape((-1,) + imgs.shape[-4:])
+        token_ids = batch["token_ids"].reshape((-1,) + batch["token_ids"].shape[-1:])
+        input_mask = batch["input_mask"].reshape((-1,) + batch["input_mask"].shape[-1:])
+        visual_feat = self._visual_feat(imgs, B, None, generator)
+        text_hidden = self.text_backbone(token_ids, input_mask, generator)
         return self.ssl_head(visual_feat, text_hidden)

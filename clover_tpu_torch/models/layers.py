@@ -2,12 +2,15 @@
 
 Dtype policy as in the JAX package: parameters are fp32, compute runs in
 the dtype of the activations (bf16 on the card, fp32 in the CPU tests),
-LayerNorm statistics and softmax are fp32.
+LayerNorm statistics and softmax are fp32. Randomness in training (dropout,
+DropPath) is drawn from an explicit ``torch.Generator`` on the activations'
+device, which the caller passes down the forward.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +40,9 @@ class LayerNorm(nn.Module):
     """LayerNorm with fp32 statistics, output in the input's dtype.
 
     ``kernel=True`` marks the sites the JAX package runs through its fused
-    LayerNorm kernel (``LayerNormAuto`` with ``fwd_only``); they go through
-    ``fused_layer_norm``. The other sites (e.g. the projector norms) stay
+    LayerNorm kernel (``LayerNormAuto`` with ``fwd_only``, i.e. outside
+    training); they go through ``fused_layer_norm`` in eval mode and plain
+    in training, as there. The other sites (e.g. the projector norms) stay
     plain, as in the reference."""
 
     def __init__(self, dim: int, eps: float = 1e-5, kernel: bool = False):
@@ -49,7 +53,7 @@ class LayerNorm(nn.Module):
         self.kernel = kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fn = fused_layer_norm if self.kernel else layer_norm_plain
+        fn = fused_layer_norm if self.kernel and not self.training else layer_norm_plain
         return fn(x, self.weight, self.bias, self.eps)
 
 
@@ -61,6 +65,51 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, out_features)
+
+
+def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
+               device) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("dropout in training needs an explicit torch.Generator")
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
+            training: bool) -> torch.Tensor:
+    """Inverted dropout (flax ``nn.Dropout``): x / keep where a Bernoulli(keep)
+    draw holds, else 0; the identity outside training or at rate 0."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(x.shape, keep, generator, x.device)
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (port of ``clover_tpu/models/layers.py::
+    DropPath``): each sample of the leading axis keeps its branch with
+    probability 1 - rate, scaled by 1 / (1 - rate)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def active(self) -> bool:
+        return self.training and self.rate > 0.0
+
+    def sample_scale(self, n: int, generator: Optional[torch.Generator],
+                     device) -> torch.Tensor:
+        """(n,) fp32 per-sample factor keep_mask / keep_prob (one draw)."""
+        keep = 1.0 - self.rate
+        return _keep_mask((n,), keep, generator, device).float() / keep
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.active():
+            return x
+        keep = 1.0 - self.rate
+        mask = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep, generator, x.device)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 class ProjectorNorm(nn.Module):

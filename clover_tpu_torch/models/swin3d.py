@@ -1,13 +1,17 @@
-"""Video Swin Transformer, eval forward (port of ``clover_tpu/models/swin3d.py``).
+"""Video Swin Transformer (port of ``clover_tpu/models/swin3d.py``).
 
-What is ported is the path the retrieval eval runs: host space-to-depth
-input with the ImageNet normalization folded into the patch embed,
-window-resident stages (activations stay partitioned into windows for a
-whole stage; a shifted block permutes tokens in and out), the flat window
-attention (kernel K1), the fused LN2+MLP+residual half (kernel K2) and the
-forward-only LayerNorm sites (kernel K4). Layout is channels-last
-(B, T, H, W, C) as in the JAX package; parameter names follow its tree
-(``stage_{i}_block_{j}``, ``patch_embed``, ``stage_{i}_downsample``, ``norm``).
+What is ported is the path the retrieval eval and the retrieval finetune
+run: host space-to-depth input with the ImageNet normalization folded into
+the patch embed, window-resident stages (activations stay partitioned into
+windows for a whole stage; a shifted block permutes tokens in and out), the
+flat window attention (kernel K1, its backward K5), the fused
+LN2+MLP+residual half (kernel K2; in training its stash form) and the
+forward-only LayerNorm sites (kernel K4, eval only). In training (``train()``
+mode) DropPath is drawn per sample from the generator passed to
+``forward``, and the relative-position bias comes from the table at every
+block so that it gets a gradient. Layout is channels-last (B, T, H, W, C) as
+in the JAX package; parameter names follow its tree (``stage_{i}_block_{j}``,
+``patch_embed``, ``stage_{i}_downsample``, ``norm``).
 """
 
 from __future__ import annotations
@@ -21,22 +25,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import LayerNorm, Linear, Mlp, trunc_normal_
-from clover_tpu_torch.ops.mlp_block import fused_ln_mlp_residual, ln_mlp_residual_plain
-from clover_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
-from clover_tpu_torch.ops.window_attention import (
-    flat2_window_attention,
-    window_attention_plain,
+from clover_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, trunc_normal_
+from clover_tpu_torch.ops.mlp_block import (
+    FusedLnMlpResidualFn,
+    fused_ln_mlp_residual,
+    ln_mlp_residual_plain,
 )
+from clover_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
+from clover_tpu_torch.ops.window_attention import WindowAttentionFn
 
 Tuple3 = Tuple[int, int, int]
 
 
 @dataclasses.dataclass(frozen=True)
 class SwinConfig:
-    """The fields of ``clover_tpu.models.swin3d.SwinConfig`` the eval forward
-    reads. The input is always host space-to-depth (``embed_impl='host_s2d'``)
-    and the stages are window-resident."""
+    """The fields of ``clover_tpu.models.swin3d.SwinConfig`` the port reads.
+    The input is always host space-to-depth (``embed_impl='host_s2d'``) and
+    the stages are window-resident."""
 
     patch_size: Tuple3 = (2, 4, 4)
     in_chans: int = 3
@@ -50,6 +55,7 @@ class SwinConfig:
     patch_norm: bool = True
     fold_normalize: bool = False
     gelu: str = "tanh"          # 'tanh' | 'erf', as SwinConfig.gelu
+    drop_path_rate: float = 0.1
 
     @property
     def num_features(self) -> int:
@@ -202,13 +208,16 @@ def _window_shift_perm_np(dims: Tuple3, window: Tuple3, shift: Tuple3):
 def _device_constant(kind: str, dims: Tuple3, window: Tuple3, shift: Tuple3,
                      device: torch.device) -> Optional[torch.Tensor]:
     """The shift permutations and region ids as device tensors, made once per
-    (shape, device) instead of copied from the host at every block."""
-    if kind == "region_ids":
-        ids = _shift_region_ids(dims, window, shift)
-        return None if ids is None else torch.from_numpy(ids).to(device)
-    perm, inv = _window_shift_perm_np(dims, window, shift)
-    chosen = inv if kind == "inv_perm" else perm
-    return torch.from_numpy(chosen.astype(np.int64)).to(device)
+    (shape, device) instead of copied from the host at every block. Made
+    outside inference mode even when first asked for under it (the eval
+    step), so that a later train step can save them for its backward."""
+    with torch.inference_mode(False):
+        if kind == "region_ids":
+            ids = _shift_region_ids(dims, window, shift)
+            return None if ids is None else torch.from_numpy(ids).to(device)
+        perm, inv = _window_shift_perm_np(dims, window, shift)
+        chosen = inv if kind == "inv_perm" else perm
+        return torch.from_numpy(chosen.astype(np.int64)).to(device)
 
 
 def _apply_window_perm(x: torch.Tensor, dims: Tuple3, window: Tuple3, shift: Tuple3,
@@ -247,31 +256,35 @@ class WindowAttention3D(nn.Module):
         if bias is None:
             bias = bias_from_table(self.relative_position_bias_table, self.full_window,
                                    tuple(eff_window), self.num_heads)
-        attn = flat2_window_attention if self.kernels else window_attention_plain
-        out2 = attn(self.qkv(x2), bias, region_ids, self.scale, self.num_heads, N)
+        out2 = WindowAttentionFn.apply(self.qkv(x2), bias, region_ids, self.scale,
+                                       self.num_heads, N, self.kernels)
         return self.proj(out2)
 
 
 class SwinBlock3D(nn.Module):
     """One window-resident Swin block: x (B, nW*N, C) in unshifted window-major
-    order -> same. LN1 -> window attention -> residual, then the fused
-    LN2 + MLP + residual half (``SwinBlock3D._window_resident_call`` and
-    ``_mlp_half`` of the JAX package; DropPath is the identity at eval)."""
+    order -> same. LN1 -> window attention -> DropPath -> residual, then the
+    fused LN2 + MLP + DropPath + residual half (``SwinBlock3D.
+    _window_resident_call`` and ``_mlp_half`` of the JAX package). In
+    training the two halves draw their per-sample DropPath masks separately
+    from ``generator``; the MLP half's rides K2 as a per-row scale."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True):
+                 qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True,
+                 drop_path: float = 0.0):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.gelu = gelu
         self.kernels = kernels
         self.norm1 = LayerNorm(dim, kernel=kernels)
         self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias, qk_scale, kernels)
+        self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x: torch.Tensor, dims: Tuple3,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dims: Tuple3, bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         window, shift = effective_window(dims, self.window_size, self.shift_size)
         B, L, C = x.shape
         do_shift = any(s > 0 for s in shift)
@@ -280,18 +293,25 @@ class SwinBlock3D(nn.Module):
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
             region_ids = _device_constant("region_ids", tuple(dims), window, shift, x.device)
         xn = self.norm1(x)
-        x = x + self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
-        x = self._mlp_half(x)
+        attn = self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
+        x = x + self.drop_path(attn, generator)
+        x = self._mlp_half(x, generator)
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=True)
         return x
 
-    def _mlp_half(self, x: torch.Tensor) -> torch.Tensor:
-        op = fused_ln_mlp_residual if self.kernels else ln_mlp_residual_plain
-        C = x.shape[-1]
-        out = op(x.reshape(-1, C), self.norm2.weight, self.norm2.bias,
-                 self.mlp.fc1.weight, self.mlp.fc1.bias, self.mlp.fc2.weight,
-                 self.mlp.fc2.bias, 1e-5, self.gelu)
+    def _mlp_half(self, x: torch.Tensor,
+                  generator: Optional[torch.Generator]) -> torch.Tensor:
+        B, L, C = x.shape
+        args = (x.reshape(-1, C), self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        if not self.training:
+            op = fused_ln_mlp_residual if self.kernels else ln_mlp_residual_plain
+            return op(*args, 1e-5, self.gelu).view(x.shape)
+        row_scale = None
+        if self.drop_path.active():
+            row_scale = self.drop_path.sample_scale(B, generator, x.device).repeat_interleave(L)
+        out = FusedLnMlpResidualFn.apply(*args, row_scale, 1e-5, self.gelu, self.kernels)
         return out.view(x.shape)
 
 
@@ -357,28 +377,32 @@ class PatchEmbed3D(nn.Module):
 class SwinTransformer3D(nn.Module):
     """Backbone: patch embed -> window-resident stages -> final LN.
 
-    forward(x, bias_cache=None): x (B, D', H', W', pd*ph*pw*3) host s2d
-    clips in the compute dtype (pixel-scale with fold_normalize, else
-    normalized) -> (B, D', H'/8, W'/8, num_features) in the same dtype."""
+    forward(x, bias_cache=None, generator=None): x (B, D', H', W', pd*ph*pw*3)
+    host s2d clips in the compute dtype (pixel-scale with fold_normalize,
+    else normalized) -> (B, D', H'/8, W'/8, num_features) in the same dtype.
+    Block i's DropPath rate is ``linspace(0, drop_path_rate, blocks)[i]``;
+    ``generator`` feeds it in training."""
 
     def __init__(self, cfg: SwinConfig, kernels: bool = True):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = PatchEmbed3D(cfg, kernels)
         shift = tuple(s // 2 for s in cfg.window_size)
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
         for i_stage, depth in enumerate(cfg.depths):
             dim = int(cfg.embed_dim * 2 ** i_stage)
             for i_blk in range(depth):
                 self.add_module(f"stage_{i_stage}_block_{i_blk}", SwinBlock3D(
                     dim, cfg.num_heads[i_stage], cfg.window_size,
                     (0, 0, 0) if i_blk % 2 == 0 else shift, cfg.mlp_ratio, cfg.qkv_bias,
-                    cfg.qk_scale, cfg.gelu, kernels))
+                    cfg.qk_scale, cfg.gelu, kernels,
+                    dpr[sum(cfg.depths[:i_stage]) + i_blk]))
             if i_stage < len(cfg.depths) - 1:
                 self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
         self.norm = LayerNorm(cfg.num_features, kernel=kernels)
 
-    def forward(self, x: torch.Tensor,
-                bias_cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias_cache: Optional[Dict[str, torch.Tensor]] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         x = self.patch_embed(x)
         for i_stage, depth in enumerate(cfg.depths):
@@ -394,7 +418,7 @@ class SwinTransformer3D(nn.Module):
             for i_blk in range(depth):
                 name = f"stage_{i_stage}_block_{i_blk}"
                 blk_bias = bias_cache.get(name) if bias_cache is not None else None
-                x = getattr(self, name)(x, dims, blk_bias)
+                x = getattr(self, name)(x, dims, blk_bias, generator)
             x = window_reverse(x.reshape(-1, N, C), window, B, D, H, W)
             if i_stage < len(cfg.depths) - 1:
                 x = getattr(self, f"stage_{i_stage}_downsample")(x)

@@ -5,17 +5,24 @@ counts kernel launches."""
 
 from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain  # noqa: F401
 from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
+    FusedLnMlpResidualFn,
     fused_ln_mlp_residual,
+    fused_ln_mlp_residual_stash,
     fused_mlp_postln,
+    ln_mlp_residual_bwd_stash,
     ln_mlp_residual_plain,
     mlp_postln_plain,
 )
 from clover_tpu_torch.ops.window_attention import (  # noqa: F401
+    WindowAttentionFn,
     flat2_window_attention,
+    flat2_window_attention_bwd,
+    window_attention_bwd_plain,
     window_attention_plain,
 )
 
-KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm)
+KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm,
+           flat2_window_attention_bwd, fused_ln_mlp_residual_stash)
 
 
 def reset_launch_counts() -> None:

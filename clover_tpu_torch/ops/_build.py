@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-On first use, ``nvcc`` compiles every ``clover_tpu_torch/csrc/*.cu`` into one
-shared library with a plain C interface (``sm_90a``), which is loaded with
-``ctypes``. The library's file name carries a hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is reused. The
-build directory (``clover_tpu_torch/_build/``) is git-ignored.
+On first use, ``nvcc`` compiles every ``clover_tpu_torch/csrc/*.cu`` (one
+process per source, all at once) and links them into one shared library
+with a plain C interface (``sm_90a``), which is loaded with ``ctypes``. The
+library's file name carries a hash of the sources and flags, so an edited
+source is rebuilt and an unchanged one is reused. The build directory
+(``clover_tpu_torch/_build/``) is git-ignored.
 
 Every C entry point returns ``cudaGetLastError()`` right after its launch;
 :func:`launch` raises when that is not 0, so a refused launch (too much
@@ -27,15 +28,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each C entry point; pointers and the stream are c_void_p
 _SIGNATURES = {
     "clover_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "clover_ln_mlp_residual": (_P,) * 8 + (_I, _I, _I, _F, _I, _P),
+    "clover_ln_mlp_residual": (_P,) * 12 + (_I, _I, _I, _F, _I, _P),
     "clover_mlp_postln": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
+    "clover_window_attention_bwd": (_P,) * 8 + (_I,) * 6 + (_F, _P),
 }
 
 _lock = threading.Lock()
@@ -67,16 +69,34 @@ def library_path() -> Path:
     return BUILD_DIR / f"libclover_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands at once; raise with the stderr of the first that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)) for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{err}")
+    if failed:
+        raise RuntimeError("kernel build failed (" + "\n".join(failed) + ")")
+
+
 def _compile(target: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in _sources() if p.suffix == ".cu")]
+    tag = f"{target.stem}.{os.getpid()}"
+    units = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in units]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed ({' '.join(cmd)}):\n{proc.stderr}")
+    try:
+        _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                  for p, o in zip(units, objs)])
+        _run_all([[_nvcc(), "-shared", "-o", str(tmp), *(str(o) for o in objs)]])
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, target)   # atomic: a concurrent loader sees all or nothing
     build_seconds = time.perf_counter() - t0
 

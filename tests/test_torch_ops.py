@@ -324,6 +324,8 @@ x3, w3 = randn(960, 768), mlp(768, 3072)
 x2, w2 = randn(1000, 512), mlp(512, 2048)
 qkv, bias = randn(8 * 196, 3 * 128), randn(4, 196, 196, dtype=torch.float32)
 ids = torch.from_numpy(_shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))).to(dev)
+dout = randn(8 * 196, 128)
+rs = torch.ones(1000, device=dev)
 xn, wn, bn = randn(1000, 768), randn(768, dtype=torch.float32), randn(768, dtype=torch.float32)
 cases = {
     "K1": (lambda: ops.flat2_window_attention(qkv, bias, ids, 32 ** -0.5, 4, 196),
@@ -333,6 +335,17 @@ cases = {
     "K3": (lambda: ops.fused_mlp_postln(x3, *w3, 1e-12),
            lambda: ops.mlp_postln_plain(x3, *w3, 1e-12)),
     "K4": (lambda: ops.fused_layer_norm(xn, wn, bn), lambda: ops.layer_norm_plain(xn, wn, bn)),
+    "K5 dqkv": (lambda: ops.flat2_window_attention_bwd(qkv, bias, ids, dout, 32 ** -0.5, 4,
+                                                       196)[0],
+                lambda: ops.window_attention_bwd_plain(qkv, bias, ids, dout, 32 ** -0.5, 4,
+                                                       196)[0]),
+    "K5 dbias": (lambda: ops.flat2_window_attention_bwd(qkv, bias, ids, dout, 32 ** -0.5, 4,
+                                                        196)[1],
+                 lambda: ops.window_attention_bwd_plain(qkv, bias, ids, dout, 32 ** -0.5, 4,
+                                                        196)[1]),
+    "K2 stash z": (lambda: ops.fused_ln_mlp_residual_stash(x2, *w2, 1e-5, "tanh", rs)[1][0],
+                   lambda: ops.ln_mlp_residual_plain(x2, *w2, 1e-5, "tanh", row_scale=rs,
+                                                     want_stash=True)[1][0]),
 }
 bad = []
 for name, (kernel, plain) in cases.items():
