@@ -17,6 +17,12 @@ Phases, in order; any failure raises and exits non-zero:
    and the R@K metrics;
 5. run the same batches through the plain versions on the card, compare the
    embeddings (cosine per row) and print clips/s of both paths;
+5b. the 32-frame retrieval eval (B=32 clips of 32 x 224^2: Swin-B's 8x7x7
+   window, N=392, where every block runs the fused attention half-block
+   K6): K6 against its plain version at the four stage shapes, unshifted
+   and shifted, K2-K4 at the path's shapes; then the path itself through
+   make_embed_eval_step + run_retrieval_eval, its launch counts, and the
+   plain path on the same batches (cosine per row, clips/s, peak memory);
 6. hold each train kernel (K1 at the 12-frame window, K5, K2's stash form)
    against its plain version at the shapes of the finetune step (B=16 clips
    of 12 x 224^2, L=30), and time both;
@@ -26,10 +32,19 @@ Phases, in order; any failure raises and exits non-zero:
    gradient on every parameter;
 8. run the same steps with the plain versions, compare step 1's loss,
    grad_norm and per-tensor gradient cosine, print clips/s and peak memory
-   of both paths; with --profile, trace a few more steps of each path with
-   torch.profiler and print the device time by kernel family;
-9. print the kernel table as one JSON line (one row per kernel and path),
-   then the device line.
+   of both paths; with --profile, trace a few more steps of each path (and,
+   in phase 5b, the kernel path's 32-frame forwards) with torch.profiler
+   and print the device time by kernel family;
+9. print the kernel table as one JSON line (one row per kernel and path:
+   launches on the path's run, ms and plain ms summed per forward or step,
+   the card's bound for the same work, and one PyTorch library call's time
+   where one computes the same function), then the device line.
+
+Bounds: the larger of the bytes the function must move (each input read
+once, each output written once) over 3.35 TB/s and its matrix products over
+989 TFLOP/s bf16 (K4: its fp32 arithmetic over 67 TFLOP/s), per call at the
+path's shapes, summed with the call counts. The softmax's exponentials are
+not counted.
 
 Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 """
@@ -53,12 +68,20 @@ COS_MIN = 0.99                  # kernel-path vs plain-path embeddings, per row
 # the plain versions round (logits, pre-GELU hidden, MLP output) -- so
 # disagreements of one to a few bf16 ulps of the largest values are expected.
 TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 1e-2),
-       "K5": (2e-2, 2e-2), "K2S": (2e-2, 2e-2),
+       "K5": (2e-2, 2e-2), "K2S": (2e-2, 2e-2), "K6": (2e-2, 1e-2),
        # fp32 outputs, both sides in fp32 (summation order and rsqrtf apart):
        # ~1e-7 of max|p| observed; each limit must stay below the error of the
        # same values rounded to bf16 (checked), and rstd's below an eps of
        # 1e-6 for 1e-5 at unit variance (~4.5e-6)
        "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6)}
+# the 32-frame retrieval eval (bench.py's BENCH_FRAMES=32, B=32): every
+# Swin block at N=392 through the fused half-block K6
+T32, N32_BATCHES = 32, 2
+COS32_MIN = 0.999               # kernel-path vs plain-path embeddings, per row
+# K6's output is x + branch, bf16: besides the max-error limit in TOL, its
+# mean |kernel - plain| must stay below the mean error of the same plain
+# output with its branch rounded once more to bf16, bf16(x + bf16(p - x))
+PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12   # H100 SXM, dense
 # the retrieval finetune (bench.py's bench_finetune): B=16 clips of 12 frames
 TB, TT = 16, 12
 TRAIN_STEPS = 5
@@ -98,14 +121,18 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def path_shapes(cfg):
-    """Per-forward kernel calls of the eval path: {kernel: [(args, count)]}."""
-    from clover_tpu_torch.models.swin3d import _shift_region_ids, effective_window
+def path_shapes(cfg, frames=T):
+    """Per-forward kernel calls of the eval path at ``frames`` frames:
+    {kernel: [(args, count)]}. A block whose window has N >= 384 tokens runs
+    LN1 + attention + proj as K6 (SwinConfig.fused_attn 'auto'), else LN1
+    as K4 and the attention as K1."""
+    from clover_tpu_torch.models.swin3d import (_shift_region_ids, effective_window,
+                                                fused_attn_enabled)
 
     sw, bt = cfg.swin, cfg.text_bert
-    dims = (T // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
+    dims = (frames // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
     shift = tuple(s // 2 for s in sw.window_size)
-    calls = {"K1": [], "K2": [], "K3": [], "K4": []}
+    calls = {"K1": [], "K2": [], "K3": [], "K4": [], "K6": []}
     calls["K4"].append(((B * int(np.prod(dims)), sw.embed_dim), 1))          # patch norm
     for i, depth in enumerate(sw.depths):
         C, nH = sw.embed_dim * 2 ** i, sw.num_heads[i]
@@ -114,11 +141,14 @@ def path_shapes(cfg):
         N = int(np.prod(window))
         ids = _shift_region_ids(dims, window, sh)
         n_shifted = depth // 2 if ids is not None else 0
-        calls["K1"].append(((rows // N, N, nH, None), depth - n_shifted))
+        fused = fused_attn_enabled(sw.fused_attn, N)
+        attn = "K6" if fused else "K1"
+        calls[attn].append(((rows // N, N, nH, None), depth - n_shifted))
         if n_shifted:
-            calls["K1"].append(((rows // N, N, nH, ids), n_shifted))
+            calls[attn].append(((rows // N, N, nH, ids), n_shifted))
         calls["K2"].append(((rows, C), depth))
-        calls["K4"].append(((rows, C), depth))                               # norm1
+        if not fused:
+            calls["K4"].append(((rows, C), depth))                           # norm1
         if i < len(sw.depths) - 1:
             dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
             calls["K4"].append(((B * int(np.prod(dims)), 4 * C), 1))         # merging
@@ -128,32 +158,79 @@ def path_shapes(cfg):
     return calls
 
 
-def kernel_phase(cfg, dev):
-    """Each kernel against its plain version at the path's shapes."""
+def bound_ms(flops=0.0, nbytes=0.0, fp32_ops=0.0):
+    """(operations, bytes) lower bounds in ms of one call on the card."""
+    return ((flops / PEAK_BF16 + fp32_ops / PEAK_FP32) * 1e3, nbytes / PEAK_BYTES * 1e3)
+
+
+def attention_work(Bn, N, nH, ids, products=2, row_widths=4, dbias=False):
+    """Window attention's bound: ``products`` N x N x 32 matrix products per
+    (window, head); ``row_widths`` x C bf16 activations per token (K1: qkv
+    in, out; K5: qkv and g in, dqkv out); the fp32 bias (and dbias), the
+    region ids."""
+    C = nH * 32
+    nbytes = (Bn * N * row_widths * C * 2 + nH * N * N * 4 * (2 if dbias else 1)
+              + (0 if ids is None else ids.size * 4))
+    return bound_ms(flops=products * 2 * Bn * nH * N * N * 32, nbytes=nbytes)
+
+
+def mlp_work(rows, C, H, extra_bytes=0):
+    """The MLP half's bound: two rows x C x H products; x in, out, the fp32
+    weights and biases."""
+    return bound_ms(flops=4 * rows * C * H,
+                    nbytes=4 * rows * C + 8 * C * H + 4 * (H + 3 * C) + extra_bytes)
+
+
+def sdpa_ms(qkv, bias, nH, N, scale, reps, grad=None):
+    """One F.scaled_dot_product_attention call on the same q, k, v (laid out
+    (Bn, nH, N, 32) outside the timing) with the bias as a broadcast float
+    mask; with ``grad``, its backward with the mask requiring grad."""
     import torch
+    import torch.nn.functional as F
+
+    Bn = qkv.shape[0] // N
+    q, k, v = qkv.view(Bn, N, 3, nH, 32).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+    mask = bias.to(qkv.dtype)[None]
+    if grad is None:
+        return cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                              scale=scale), reps)
+    q, k, v, mask = (t.detach().requires_grad_() for t in (q, k, v, mask))
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+    g = grad.view(Bn, N, nH, 32).permute(0, 2, 1, 3)
+    return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v, mask), g, retain_graph=True),
+                   reps)
+
+
+def kernel_phase(cfg, dev, frames=T, seed=SEED):
+    """Each kernel against its plain version at the path's shapes, with its
+    bound and (K1, K4) one library call's time at the same shapes."""
+    import torch
+    import torch.nn.functional as F
 
     from clover_tpu_torch import ops
     from clover_tpu_torch.models.swin3d import _shift_region_ids
 
-    g = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     results = {}
-    calls = path_shapes(cfg)
-    # the region mask at nH=32 too (stage 3 has no shifted block at 8 frames)
-    ids_extra = _shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))[:1]
-    calls["K1"].append(((B, 196, 32, ids_extra), 0))
+    calls = path_shapes(cfg, frames)
+    if frames == T:
+        # the region mask at nH=32 too (stage 3 has no shifted block at 8 frames)
+        ids_extra = _shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))[:1]
+        calls["K1"].append(((B, 196, 32, ids_extra), 0))
 
     record = recorder(results, "forward")
+    scale = 32 ** -0.5
+    library = {}   # K1's library call per unshifted shape, for its shifted calls too
 
     for (Bn, N, nH, ids), count in calls["K1"]:
         C = nH * 32
         qkv = randn(Bn * N, 3 * C)
         bias = randn(nH, N, N, dtype=torch.float32)
         rid = None if ids is None else torch.from_numpy(ids).to(dev)
-        scale = 32 ** -0.5
 
         def k():
             return ops.flat2_window_attention(qkv, bias, rid, scale, nH, N)
@@ -161,17 +238,36 @@ def kernel_phase(cfg, dev):
         def p():
             return ops.window_attention_plain(qkv, bias, rid, scale, nH, N)
 
+        if ids is None:
+            library[(Bn, N, nH)] = sdpa_ms(qkv, bias, nH, N, scale, 5)
         out, ref = k(), p()
         record("K1", "flat2_window_attention", f"Bn={Bn} N={N} nH={nH} "
                f"mask={'yes' if ids is not None else 'no'}", out, ref,
-               cuda_ms(k, 5), cuda_ms(p, 5), count)
+               cuda_ms(k, 5), cuda_ms(p, 5), count, work=attention_work(Bn, N, nH, ids),
+               lib=library.get((Bn, N, nH), 0.0))
+
+    for (Bn, N, nH, ids), count in calls["K6"]:
+        C = nH * 32
+        x, w = randn(Bn * N, C), attn_block_weights(randn, C)
+        bias = randn(nH, N, N, dtype=torch.float32)
+        rid = None if ids is None else torch.from_numpy(ids).to(dev)
+        args = (x, w[0], w[1], w[2], w[3], bias, rid, w[4], w[5], scale, nH, N)
+        k = lambda: ops.fused_window_attn_block(*args)   # noqa: E731
+        p = lambda: ops.window_attn_block_plain(*args)   # noqa: E731
+        work = bound_ms(flops=2 * Bn * N * (4 * C * C + 2 * N * C),
+                        nbytes=4 * Bn * N * C + 16 * C * C + 24 * C + 4 * nH * N * N
+                        + (0 if ids is None else ids.size * 4))
+        record("K6", "fused_window_attn_block", f"Bn={Bn} N={N} C={C} nH={nH} "
+               f"mask={'yes' if ids is not None else 'no'}", k(), p(), cuda_ms(k, 3),
+               cuda_ms(p, 2), count, work=work)
+        del x, bias, args
 
     for (rows, C), count in calls["K2"]:
         x, w = randn(rows, C), mlp_weights(randn, C, 4 * C)
         k = lambda: ops.fused_ln_mlp_residual(x, *w, 1e-5, cfg.swin.gelu)   # noqa: E731
         p = lambda: ops.ln_mlp_residual_plain(x, *w, 1e-5, cfg.swin.gelu)   # noqa: E731
         record("K2", "fused_ln_mlp_residual", f"rows={rows} C={C}", k(), p(),
-               cuda_ms(k, 5), cuda_ms(p, 5), count)
+               cuda_ms(k, 5), cuda_ms(p, 5), count, work=mlp_work(rows, C, 4 * C))
 
     for (rows, C), count in calls["K3"]:
         H = cfg.text_bert.intermediate_size
@@ -180,26 +276,32 @@ def kernel_phase(cfg, dev):
         k = lambda: ops.fused_mlp_postln(x, *w, eps)   # noqa: E731
         p = lambda: ops.mlp_postln_plain(x, *w, eps)   # noqa: E731
         record("K3", "fused_mlp_postln", f"rows={rows} C={C}", k(), p(),
-               cuda_ms(k, 20), cuda_ms(p, 20), count)
+               cuda_ms(k, 20), cuda_ms(p, 20), count, work=mlp_work(rows, C, H))
 
     for (rows, C), count in calls["K4"]:
         x = randn(rows, C)
         w = 1 + randn(C, std=0.1, dtype=torch.float32)
         b = randn(C, std=0.1, dtype=torch.float32)
+        wb, bb = w.bfloat16(), b.bfloat16()
         k = lambda: ops.fused_layer_norm(x, w, b, 1e-5)   # noqa: E731
         p = lambda: ops.layer_norm_plain(x, w, b, 1e-5)   # noqa: E731
+        lib = cuda_ms(lambda: F.layer_norm(x, (C,), wb, bb, 1e-5), 10)
         record("K4", "fused_layer_norm", f"rows={rows} C={C}", k(), p(),
-               cuda_ms(k, 10), cuda_ms(p, 10), count)
+               cuda_ms(k, 10), cuda_ms(p, 10), count,
+               work=bound_ms(fp32_ops=8 * rows * C, nbytes=4 * rows * C + 8 * C), lib=lib)
     return results
 
 
 def recorder(results, per):
-    """record(key, name, label, out, ref, t_k, t_p, count): check one kernel
-    output against its plain version, print it, and add the times (count
-    calls per ``per``) to results[key]."""
+    """record(key, name, label, out, ref, t_k, t_p, count, part, work, lib):
+    check one kernel output against its plain version, print it, and add
+    the times (count calls per ``per``) to results[key]: kernel and plain
+    ms, the bound (``work``: (operations ms, bytes ms) of one call) and the
+    library call's ms (``lib``; None where no PyTorch call computes the
+    function)."""
     import torch
 
-    def record(key, name, label, out, ref, t_k, t_p, count, part=None):
+    def record(key, name, label, out, ref, t_k, t_p, count, part=None, work=None, lib=None):
         err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
         atol, rtol = TOL[f"{key} {part}" if f"{key} {part}" in TOL else key]
@@ -214,17 +316,41 @@ def recorder(results, per):
             check(tol < ctrl, f"{key} {label}: limit {tol:.3e} does not separate a bf16 output "
                               f"({ctrl:.3e})")
         label = label if part is None else f"{label} {part}"
+        extra = ""
+        if work is not None:
+            extra = f" bound={max(work):.4f} ms ({'operations' if work[0] >= work[1] else 'bytes'})"
+        if lib is not None:
+            extra += f" library={lib:.4f} ms"
         print(f"{key} {name} {label}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
               f"rel={err / max(scale, 1e-30):.2e} tol={tol:.3e}{control} "
-              f"kernel={t_k:.4f} ms plain={t_p:.4f} ms x{count}/{per} {'OK' if ok else 'FAIL'}",
-              flush=True)
-        r = results.setdefault(key, {"name": name, "err": 0.0, "ms": 0.0, "plain_ms": 0.0})
+              f"kernel={t_k:.4f} ms plain={t_p:.4f} ms{extra} x{count}/{per} "
+              f"{'OK' if ok else 'FAIL'}", flush=True)
+        r = results.setdefault(key, {"name": name, "err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                                     "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0,
+                                     "library_ms": None})
         r["err"] = max(r["err"], err)
         r["ms"] += t_k * count
         r["plain_ms"] += t_p * count
+        if work is not None:
+            r["bound_ms"] += max(work) * count
+            r["ops_ms"] += work[0] * count
+            r["bytes_ms"] += work[1] * count
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib * count
         check(ok, f"{key} {label}: kernel disagrees with its plain version")
 
     return record
+
+
+def attn_block_weights(randn, C):
+    """LN1 scale / bias, qkv (3C, C) and its bias, proj (C, C) and its bias,
+    fp32, in torch Linear layout."""
+    import torch
+
+    f = torch.float32
+    return (1 + randn(C, std=0.1, dtype=f), randn(C, std=0.1, dtype=f),
+            randn(3 * C, C, std=C ** -0.5, dtype=f), randn(3 * C, std=0.1, dtype=f),
+            randn(C, C, std=C ** -0.5, dtype=f), randn(C, std=0.1, dtype=f))
 
 
 def train_path_shapes(cfg):
@@ -271,23 +397,30 @@ def train_kernel_phase(cfg, dev, results):
     ids_extra = _shift_region_ids((6, 14, 14), (6, 7, 7), (0, 3, 3))[:1]
     calls["K1"].append(((TB, 294, 32, ids_extra), 0))
     scale = 32 ** -0.5
+    library = {}   # SDPA forward and backward per unshifted shape
     for (Bn, N, nH, ids), count in calls["K1"]:
         C = nH * 32
         qkv, grad = randn(Bn * N, 3 * C), randn(Bn * N, C)
         bias = randn(nH, N, N, dtype=torch.float32)
         rid = None if ids is None else torch.from_numpy(ids).to(dev)
         label = f"Bn={Bn} N={N} nH={nH} mask={'yes' if ids is not None else 'no'}"
+        if ids is None:
+            library[Bn, N, nH] = (sdpa_ms(qkv, bias, nH, N, scale, 5),
+                                  sdpa_ms(qkv, bias, nH, N, scale, 3, grad))
+        lib_f, lib_b = library.get((Bn, N, nH), (0.0, 0.0))
         k = lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N)   # noqa: E731
         p = lambda: ops.window_attention_plain(qkv, bias, rid, scale, nH, N)   # noqa: E731
         record("K1", "flat2_window_attention", label, k(), p(), cuda_ms(k, 5), cuda_ms(p, 3),
-               count)
+               count, work=attention_work(Bn, N, nH, ids), lib=lib_f)
         kb = lambda: ops.flat2_window_attention_bwd(   # noqa: E731
             qkv, bias, rid, grad, scale, nH, N)
         pb = lambda: ops.window_attention_bwd_plain(   # noqa: E731
             qkv, bias, rid, grad, scale, nH, N)
         (dqkv, dbias), (rdqkv, rdbias) = kb(), pb()
         t_k, t_p = cuda_ms(kb, 5), cuda_ms(pb, 2)
-        record("K5", "flat2_window_attention_bwd", label, dqkv, rdqkv, t_k, t_p, count, "dqkv")
+        record("K5", "flat2_window_attention_bwd", label, dqkv, rdqkv, t_k, t_p, count, "dqkv",
+               work=attention_work(Bn, N, nH, ids, products=5, row_widths=7, dbias=True),
+               lib=lib_b)
         record("K5", "flat2_window_attention_bwd", label, dbias, rdbias, 0.0, 0.0, 0, "dbias")
         del dqkv, dbias, rdqkv, rdbias
 
@@ -305,7 +438,10 @@ def train_kernel_phase(cfg, dev, results):
             (out, stash), (ref, rstash) = k(), p()
             t_k, t_p = (cuda_ms(k, 5), cuda_ms(p, 5)) if rs is not None else (0.0, 0.0)
             n = count if rs is not None else 0
-            record("K2S", "fused_ln_mlp_residual_stash", label, out, ref, t_k, t_p, n, "out")
+            # the stash: z (rows, 4C) bf16, mean and rstd fp32; the row scale
+            work = mlp_work(rows, C, 4 * C, extra_bytes=8 * rows * C + 12 * rows)
+            record("K2S", "fused_ln_mlp_residual_stash", label, out, ref, t_k, t_p, n, "out",
+                   work=work)
             for part, a, b in zip(("z", "mean", "rstd"), stash, rstash):
                 record("K2S", "fused_ln_mlp_residual_stash", label, a, b, 0.0, 0.0, 0, part)
 
@@ -381,9 +517,12 @@ def drive_train_path(model, batches, dev):
 
 
 PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wins
+    ("K6a LN1 + qkv + attention", ("attn_block_attention_kernel",)),
+    ("K6b proj + residual", ("attn_block_proj_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),
     ("K5 window-attention backward", ("window_attention_bwd_kernel", "dbias_finish")),
-    ("K2 stash form", ("mlp_kernel",)),
+    ("K2 / K3 / K2 stash MLP halves", ("mlp_kernel", "postln_finish")),
+    ("K4 LayerNorm", ("layer_norm_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
     ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
     ("reductions, softmax, norms", ("reduce", "softmax", "norm")),
@@ -391,46 +530,73 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
 )
 
 
-def profile_train_path(model, batches, dev, wall_ms: float, label: str) -> None:
-    """Device time of the train step by kernel family: torch.profiler over
-    the batches after two warm-up steps, against the unprofiled step time
-    wall_ms of the train phase (idle share = 1 - busy / wall)."""
+def profile_runs(runs, wall_ms: float, label: str, unit: str) -> None:
+    """Device time by kernel family: torch.profiler over ``runs`` (one
+    callable per step or forward, after the caller's warm-up), against the
+    unprofiled time wall_ms of one (idle share = 1 - busy / wall)."""
     import torch
     from torch.autograd import DeviceType
 
-    state, step, generator = make_train_step(model, dev)
-    for batch in batches[:2]:
-        state, _ = step(state, batch, generator)
     torch.cuda.synchronize()
-    traced = batches[2:]
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for batch in traced:
-            state, _ = step(state, batch, generator)
+        for run in runs:
+            run()
         torch.cuda.synchronize()
-    by_name = {}   # kernel name -> [ms per step, launches per step]
+    by_name = {}   # kernel name -> [ms per unit, launches per unit]
     for evt in prof.events():
         # kernels only: user annotations (the optimizer's step range) also
         # show on the device timeline but overlap the kernels
         if evt.device_type != DeviceType.CUDA or evt.is_user_annotation:
             continue
         acc = by_name.setdefault(evt.name, [0.0, 0.0])
-        acc[0] += evt.time_range.elapsed_us() / 1e3 / len(traced)
-        acc[1] += 1 / len(traced)
+        acc[0] += evt.time_range.elapsed_us() / 1e3 / len(runs)
+        acc[1] += 1 / len(runs)
     per_family = {}
     for name, (t, _) in by_name.items():
         fam = next(f for f, keys in PROFILE_FAMILIES if any(k in name.lower() for k in keys))
         per_family[fam] = per_family.get(fam, 0.0) + t
     busy = sum(per_family.values())
-    print(f"profile, {label} path, {len(traced)} steps: device busy {busy:.2f} ms per step, "
+    print(f"profile, {label}, {len(runs)} {unit}s: device busy {busy:.2f} ms per {unit}, "
           f"unprofiled wall {wall_ms:.2f} ms (idle share {max(0.0, 1 - busy / wall_ms):.3f}), "
-          f"{round(sum(n for _, n in by_name.values()))} launches per step", flush=True)
+          f"{round(sum(n for _, n in by_name.values()))} launches per {unit}", flush=True)
     for fam, t in sorted(per_family.items(), key=lambda kv: -kv[1]):
         print(f"  {fam:40s} {t:9.3f} ms  {100 * t / busy:5.1f}%")
-    print("  largest kernels (ms per step, calls per step, name):")
+    print(f"  largest kernels (ms per {unit}, calls per {unit}, name):")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t:9.3f} {round(n):5d}  {name[:110]}")
+
+
+def profile_train_path(model, batches, dev, wall_ms: float, label: str) -> None:
+    """The train step's device time by kernel family, over the batches
+    after two warm-up steps."""
+    state, step, generator = make_train_step(model, dev)
+    for batch in batches[:2]:
+        state, _ = step(state, batch, generator)
+
+    def run(batch):
+        nonlocal state
+        state, _ = step(state, batch, generator)
+
+    profile_runs([lambda b=b: run(b) for b in batches[2:]], wall_ms, f"{label} train path",
+                 "step")
     model.zero_grad(set_to_none=True)
+
+
+def profile_eval_path(model, cfg, batches, dev, wall_ms: float, label: str) -> None:
+    """An eval forward's device time by kernel family: each batch's forward
+    through the eval step after one warm-up forward, inputs on the card."""
+    import torch
+
+    from clover_tpu_torch.engine import make_embed_eval_step
+    from clover_tpu_torch.models import swin_bias_cache
+
+    step = make_embed_eval_step(model)
+    cache = swin_bias_cache(model.backbone, cfg.swin, batches[0]["imgs"].shape[2:5])
+    on_dev = [tuple(torch.as_tensor(b[k]).to(dev) for k in ("imgs", "token_ids", "input_mask"))
+              for b in batches]
+    step(*on_dev[0], cache)
+    profile_runs([lambda a=a: step(*a, cache) for a in on_dev], wall_ms, label, "forward")
 
 
 def train_phase(model, plain, cfg, dev, card, profile: bool):
@@ -445,11 +611,12 @@ def train_phase(model, plain, cfg, dev, card, profile: bool):
     batches = make_train_batches(cfg, dev)
     wrappers = {"K1": ops.flat2_window_attention, "K5": ops.flat2_window_attention_bwd,
                 "K2S": ops.fused_ln_mlp_residual_stash, "K2": ops.fused_ln_mlp_residual,
-                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm}
+                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm,
+                "K6": ops.fused_window_attn_block}
     ops.reset_launch_counts()
     k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev)
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    per_step = {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0}
+    per_step = {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0}
     print(f"train launches over {TRAIN_STEPS} steps: {counts} (expected per step: {per_step})",
           flush=True)
     for k, n in per_step.items():
@@ -493,13 +660,15 @@ def train_phase(model, plain, cfg, dev, card, profile: bool):
     return counts
 
 
-def make_batches(cfg):
+def make_batches(cfg, frames_per_clip=T, n_batches=N_BATCHES, seed=SEED):
+    """Seeded host-s2d uint8 clips (B, 1, T/2, 56, 56, 96) and captions of
+    varied length, as the retrieval loader gives them."""
     from clover_tpu_torch.ops.preprocess import space_to_depth_host
 
-    rng = np.random.default_rng(SEED)
+    rng = np.random.default_rng(seed)
     batches = []
-    for i in range(N_BATCHES):
-        frames = rng.integers(0, 256, size=(B, T, S, S, 3), dtype=np.uint8)
+    for i in range(n_batches):
+        frames = rng.integers(0, 256, size=(B, frames_per_clip, S, S, 3), dtype=np.uint8)
         lengths = rng.integers(8, L + 1, size=B)
         tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(B, L))
         tok[:, 0] = 101                                   # [CLS]
@@ -520,7 +689,7 @@ def drive_main_path(model, cfg, batches):
     from clover_tpu_torch.engine import make_embed_eval_step, run_retrieval_eval
     from clover_tpu_torch.models import swin_bias_cache
 
-    dataset = types.SimpleNamespace(text_video_ids=[[i] for i in range(B * N_BATCHES)])
+    dataset = types.SimpleNamespace(text_video_ids=[[i] for i in range(B * len(batches))])
     metrics = run_retrieval_eval(
         make_embed_eval_step(model), model, dataset, iter(batches),
         bias_cache=lambda m, dims: swin_bias_cache(m.backbone, cfg.swin, dims))
@@ -552,6 +721,61 @@ def timed_embeddings(model, cfg, batches, dev):
     return torch.cat(vs).float(), torch.cat(ts).float(), clips_per_s
 
 
+def eval32_phase(model, plain, cfg, dev, card, profile: bool):
+    """The 32-frame retrieval eval: the path through the kernels (K6 in every
+    Swin block) and through the plain versions on the same batches; with
+    ``profile``, then trace the kernel path's forwards. -> the launch
+    counts of the kernel path's run."""
+    import torch
+
+    from clover_tpu_torch import ops
+
+    batches = make_batches(cfg, T32, N32_BATCHES, SEED + 3)
+    wrappers = {"K6": ops.fused_window_attn_block, "K1": ops.flat2_window_attention,
+                "K2": ops.fused_ln_mlp_residual, "K3": ops.fused_mlp_postln,
+                "K4": ops.fused_layer_norm, "K5": ops.flat2_window_attention_bwd,
+                "K2S": ops.fused_ln_mlp_residual_stash}
+    ops.reset_launch_counts()
+    metrics = drive_main_path(model, cfg, batches)
+    counts = {k: fn.launches for k, fn in wrappers.items()}
+    per_forward = {"K6": 24, "K1": 0, "K2": 24, "K3": 12, "K4": 18, "K5": 0, "K2S": 0}
+    print(f"32-frame launches over {N32_BATCHES} forwards: {counts} "
+          f"(expected per forward: {per_forward})", flush=True)
+    for k, n in per_forward.items():
+        check(counts[k] == n * N32_BATCHES,
+              f"32-frame {k}: {counts[k]} launches, expected {n * N32_BATCHES}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    v, t, cps = timed_embeddings(model, cfg, batches, dev)
+    k_peak = torch.cuda.max_memory_allocated(dev)
+    check(v.shape == (B * N32_BATCHES, cfg.vts_embed_dim) and t.shape == v.shape,
+          f"32-frame embedding shapes {tuple(v.shape)}, {tuple(t.shape)}")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(t).all()),
+          "32-frame: non-finite embedding")
+    check(set(metrics) >= {"Recall@1", "Recall@5", "Recall@10", "MR"}, f"metrics {metrics}")
+    print(f"32-frame kernel path R@K: {metrics}", flush=True)
+
+    ops.reset_launch_counts()
+    p_metrics = drive_main_path(plain, cfg, batches)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pv, pt, p_cps = timed_embeddings(plain, cfg, batches, dev)
+    p_peak = torch.cuda.max_memory_allocated(dev)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain 32-frame path launched a kernel")
+    cos_v = torch.nn.functional.cosine_similarity(v, pv, dim=-1).min().item()
+    cos_t = torch.nn.functional.cosine_similarity(t, pt, dim=-1).min().item()
+    print(f"32-frame plain path R@K: {p_metrics}")
+    print(f"32-frame kernel vs plain embeddings: min cosine video {cos_v:.6f} text {cos_t:.6f} "
+          f"(bound {COS32_MIN})", flush=True)
+    check(cos_v >= COS32_MIN and cos_t >= COS32_MIN,
+          f"32-frame kernel path disagrees with the plain path: min cosine video {cos_v:.6f} "
+          f"text {cos_t:.6f}, bound {COS32_MIN}")
+    print(f"32-frame clips/s (B={B}, {T32}x{S}^2, L={L}, {N32_BATCHES} batches, forward only): "
+          f"kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels {k_peak / 2**30:.2f} GiB "
+          f"plain {p_peak / 2**30:.2f} GiB on {card}", flush=True)
+    if profile:
+        profile_eval_path(model, cfg, batches, dev, B * 1e3 / cps, "kernel 32-frame eval path")
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -559,8 +783,9 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of clover_tpu_torch on one CUDA card.")
     ap.add_argument("--profile", action="store_true",
-                    help="after the train phase, trace each path's train steps with "
-                         "torch.profiler and print the device time by kernel family")
+                    help="trace the kernel path's 32-frame eval forwards and each path's "
+                         "train steps with torch.profiler and print the device time by "
+                         "kernel family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -598,11 +823,12 @@ def main(argv=None) -> int:
     batches = make_batches(cfg)
 
     wrappers = {"K1": ops.flat2_window_attention, "K2": ops.fused_ln_mlp_residual,
-                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm}
+                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm,
+                "K6": ops.fused_window_attn_block}
     ops.reset_launch_counts()
     metrics = drive_main_path(model, cfg, batches)
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    per_forward = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
+    per_forward = {"K1": 24, "K2": 24, "K3": 12, "K4": 42, "K6": 0}
     print(f"launches over {N_BATCHES} forwards: {counts} "
           f"(expected per forward: {per_forward})", flush=True)
     for k, n in per_forward.items():
@@ -630,8 +856,12 @@ def main(argv=None) -> int:
     print(f"clips/s (B={B}, {T}x{S}^2, L={L}, {N_BATCHES} batches, forward only): "
           f"kernels {cps:.2f} plain {p_cps:.2f} on {card}", flush=True)
 
-    # the finetune step; the eval models' weights are still the seeded ones
+    # the 32-frame eval, same models
     del v, t, pv, pt
+    results32 = kernel_phase(cfg, dev, T32, SEED + 3)
+    counts32 = eval32_phase(model, plain, cfg, dev, card, profile)
+
+    # the finetune step; the eval models' weights are still the seeded ones
     train = {}
     train_kernel_phase(cfg, dev, train)
     model.train()
@@ -639,22 +869,29 @@ def main(argv=None) -> int:
     train_counts = train_phase(model, plain, cfg, dev, card, profile)
 
     # one row per kernel and path: launches over the path's run, ms summed
-    # over one eval forward or one train step (K1 runs on both paths)
+    # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
                "K2": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
                "K3": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:245"),
                "K4": ("csrc/layer_norm.cu", "clover_tpu/ops/layer_norm.py:64"),
                "K5": ("csrc/window_attention_bwd.cu", "clover_tpu/ops/window_attention.py:2499"),
-               "K2S": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565")}
+               "K2S": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
+               "K6": ("csrc/attn_block.cu", "clover_tpu/ops/attn_block.py:489")}
     rows = [(k, results, counts, f"eval, ms per forward, launches over {N_BATCHES} forwards")
             for k in ("K1", "K2", "K3", "K4")]
+    rows += [(k, results32, counts32,
+              f"eval32, ms per forward, launches over {N32_BATCHES} forwards")
+             for k in ("K6", "K2", "K3", "K4")]
     rows += [(k, train, train_counts,
               f"train, ms per step, launches over {TRAIN_STEPS} steps")
              for k in ("K1", "K5", "K2S")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + sources[k][0], "replaces": sources[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],
-              "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"], "path": path}
+              "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
+              "bound_ms": res[k]["bound_ms"],
+              "bound_by": "operations" if res[k]["ops_ms"] >= res[k]["bytes_ms"] else "bytes",
+              "library_ms": res[k]["library_ms"], "path": path}
              for k, res, n, path in rows]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

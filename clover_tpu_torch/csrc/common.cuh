@@ -71,6 +71,18 @@ __device__ __forceinline__ float2 bf16x2_to_float2(unsigned v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
+// 16-byte global -> shared copies that bypass the registers, in commit
+// groups; cp_async_wait<N> waits until at most N of this thread's groups
+// are still in flight
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
 // ldmatrix.x4 source address of this lane for a row-major 16 x 16 tile at p
 // (row stride ld): lane i addresses row i % 8 of 8x8 matrix i / 8, matrices
 // in the order the m16n8k16 A operand takes them (rows 0-7 | 8-15 of k 0-7,

@@ -56,15 +56,6 @@ __device__ __forceinline__ float gelu(float h, int tanh_approx) {
   return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <int R_, int C_>
 struct Tiling {
   static constexpr int R = R_, C = C_;

@@ -1,7 +1,8 @@
 """Retrieval evaluation loop (port of ``clover_tpu/engine/eval_loop.py::
 run_retrieval_eval``), single process, host space-to-depth batches.
 
-R@K comes from ``clover_tpu.evaluation.metrics``, which is numpy only.
+R@K comes from the port's own numpy copy of the metrics
+(``clover_tpu_torch/evaluation/metrics.py``).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
-from clover_tpu.evaluation.metrics import retrieval_recall, retrieval_recall_varied
+from clover_tpu_torch.evaluation.metrics import retrieval_recall, retrieval_recall_varied
 
 
 def _dedup_sort(indices: np.ndarray, *arrays):

@@ -5,8 +5,10 @@ run: host space-to-depth input with the ImageNet normalization folded into
 the patch embed, window-resident stages (activations stay partitioned into
 windows for a whole stage; a shifted block permutes tokens in and out), the
 flat window attention (kernel K1, its backward K5), the fused
-LN2+MLP+residual half (kernel K2; in training its stash form) and the
-forward-only LayerNorm sites (kernel K4, eval only). In training (``train()``
+LN2+MLP+residual half (kernel K2; in training its stash form), the
+forward-only LayerNorm sites (kernel K4, eval only) and, in eval at large
+windows (``SwinConfig.fused_attn``), the fused LN1+attention+proj+residual
+half (kernel K6) in place of LN1, qkv, K1 and proj. In training (``train()``
 mode) DropPath is drawn per sample from the generator passed to
 ``forward``, and the relative-position bias comes from the table at every
 block so that it gets a gradient. Layout is channels-last (B, T, H, W, C) as
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from clover_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, trunc_normal_
+from clover_tpu_torch.ops.attn_block import fused_window_attn_block, window_attn_block_plain
 from clover_tpu_torch.ops.mlp_block import (
     FusedLnMlpResidualFn,
     fused_ln_mlp_residual,
@@ -56,6 +59,14 @@ class SwinConfig:
     fold_normalize: bool = False
     gelu: str = "tanh"          # 'tanh' | 'erf', as SwinConfig.gelu
     drop_path_rate: float = 0.1
+    # the fused attention half-block (K6) in eval: 'auto' for windows of
+    # N >= 384 tokens (the 32-frame 8x7x7 window), 'on' or 'off' at every
+    # N; the JAX package's CLOVER_FUSED_ATTN ('auto' / '1' / '0')
+    fused_attn: str = "auto"
+
+    def __post_init__(self):
+        if self.fused_attn not in ("auto", "on", "off"):
+            raise ValueError(f"fused_attn must be 'auto', 'on' or 'off', got {self.fused_attn!r}")
 
     @property
     def num_features(self) -> int:
@@ -163,6 +174,13 @@ def shift_attn_mask(padded_size: Tuple3, window: Tuple3,
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def fused_attn_enabled(mode: str, N: int) -> bool:
+    """Does a block run its first half as the fused half-block (K6) at
+    windows of N tokens, under ``SwinConfig.fused_attn`` ``mode``? (JAX
+    ``_fused_attn_enabled``: its measured TPU A/B picked N >= 384.)"""
+    return mode == "on" or (mode == "auto" and N >= 384)
+
+
 def window_partition(x: torch.Tensor, window: Tuple3) -> torch.Tensor:
     """(B, D, H, W, C) -> (B * nW, N, C)."""
     B, D, H, W, C = x.shape
@@ -267,16 +285,20 @@ class SwinBlock3D(nn.Module):
     fused LN2 + MLP + DropPath + residual half (``SwinBlock3D.
     _window_resident_call`` and ``_mlp_half`` of the JAX package). In
     training the two halves draw their per-sample DropPath masks separately
-    from ``generator``; the MLP half's rides K2 as a per-row scale."""
+    from ``generator``; the MLP half's rides K2 as a per-row scale. In eval,
+    where ``fused_attn`` picks it for the block's window size, the first half
+    is one call of the fused half-block (K6, ``_fused_resident_half`` of the
+    JAX package) on the block's own parameters."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, fused_attn: str = "auto"):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.gelu = gelu
         self.kernels = kernels
+        self.fused_attn = fused_attn
         self.norm1 = LayerNorm(dim, kernel=kernels)
         self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias, qk_scale, kernels)
         self.drop_path = DropPath(drop_path)
@@ -292,13 +314,41 @@ class SwinBlock3D(nn.Module):
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
             region_ids = _device_constant("region_ids", tuple(dims), window, shift, x.device)
-        xn = self.norm1(x)
-        attn = self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
-        x = x + self.drop_path(attn, generator)
+        if fused_attn_enabled(self.fused_attn, int(np.prod(window))):
+            x = self._fused_attn_half(x, window, region_ids, bias)
+        else:
+            xn = self.norm1(x)
+            attn = self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
+            x = x + self.drop_path(attn, generator)
         x = self._mlp_half(x, generator)
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=True)
         return x
+
+    def _fused_attn_half(self, x: torch.Tensor, window: Tuple3,
+                         region_ids: Optional[torch.Tensor],
+                         bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """x + proj(window_attention(LN1(x))) in one call of K6 (its plain
+        version with ``kernels=False``), from norm1's and attn's parameters."""
+        if self.training:
+            raise NotImplementedError(
+                "the fused attention half-block runs in eval only; training at windows "
+                "of N >= 384 (the 32-frame retrieval-finetune train step) needs its "
+                "backward, which is the next slice of the port")
+        attn = self.attn
+        N = int(np.prod(window))
+        B, L, C = x.shape
+        if bias is None:
+            bias = bias_from_table(attn.relative_position_bias_table, attn.full_window,
+                                   tuple(window), attn.num_heads)
+        bqkv = attn.qkv.bias
+        if bqkv is None:
+            bqkv = torch.zeros(3 * C, device=x.device)
+        op = fused_window_attn_block if self.kernels else window_attn_block_plain
+        out = op(x.reshape(-1, C), self.norm1.weight, self.norm1.bias, attn.qkv.weight, bqkv,
+                 bias, region_ids, attn.proj.weight, attn.proj.bias, attn.scale,
+                 attn.num_heads, N, self.norm1.eps)
+        return out.view(B, L, C)
 
     def _mlp_half(self, x: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -396,7 +446,7 @@ class SwinTransformer3D(nn.Module):
                     dim, cfg.num_heads[i_stage], cfg.window_size,
                     (0, 0, 0) if i_blk % 2 == 0 else shift, cfg.mlp_ratio, cfg.qkv_bias,
                     cfg.qk_scale, cfg.gelu, kernels,
-                    dpr[sum(cfg.depths[:i_stage]) + i_blk]))
+                    dpr[sum(cfg.depths[:i_stage]) + i_blk], cfg.fused_attn))
             if i_stage < len(cfg.depths) - 1:
                 self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
         self.norm = LayerNorm(cfg.num_features, kernel=kernels)

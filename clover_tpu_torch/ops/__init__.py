@@ -3,6 +3,10 @@ CUDA build (``_build``). A wrapper launches its kernel for a CUDA tensor and
 runs the plain version only for a CPU tensor; its ``launches`` attribute
 counts kernel launches."""
 
+from clover_tpu_torch.ops.attn_block import (  # noqa: F401
+    fused_window_attn_block,
+    window_attn_block_plain,
+)
 from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain  # noqa: F401
 from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
     FusedLnMlpResidualFn,
@@ -22,7 +26,7 @@ from clover_tpu_torch.ops.window_attention import (  # noqa: F401
 )
 
 KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm,
-           flat2_window_attention_bwd, fused_ln_mlp_residual_stash)
+           flat2_window_attention_bwd, fused_ln_mlp_residual_stash, fused_window_attn_block)
 
 
 def reset_launch_counts() -> None:

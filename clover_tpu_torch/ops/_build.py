@@ -11,6 +11,9 @@ Every C entry point returns ``cudaGetLastError()`` right after its launch;
 :func:`launch` raises when that is not 0, so a refused launch (too much
 shared memory, a bad argument) never passes silently. :func:`launch` takes
 the device buffers as tensors and turns them into pointers itself.
+
+``python3 -m clover_tpu_torch.ops._build`` compiles each source once more
+with ``-Xptxas -v`` and prints every kernel's registers and spills.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ _SIGNATURES = {
     "clover_mlp_postln": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
     "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
     "clover_window_attention_bwd": (_P,) * 8 + (_I,) * 6 + (_F, _P),
+    "clover_attn_block": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),
 }
 
 _lock = threading.Lock()
@@ -151,3 +155,26 @@ def stream(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptxas_report() -> str:
+    """Each kernel's registers, shared memory and spills as ptxas reports
+    them (the sources compiled with -Xptxas -v into a scratch directory)."""
+    import tempfile
+
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                                   str(Path(tmp) / f"{src.stem}.o"), str(src)],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{src.name}: build failed:\n{proc.stderr}")
+            lines += [f"{src.name}: {ln.split(':', 1)[-1].strip()}"
+                      for ln in proc.stderr.splitlines()
+                      if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+    return "\n".join(lines)
+
+
+if __name__ == "__main__":
+    print(ptxas_report())

@@ -127,6 +127,8 @@ def _mm_f32(a, b):
     bf16-in / fp32-out GEMM on the card)."""
     if a.dtype in (torch.float32, torch.float64):
         return torch.mm(a, b)
+    if not a.is_cuda:   # no mixed-dtype mm on the CPU; bf16 products are exact in fp32
+        return torch.mm(a.float(), b.float())
     return torch.mm(a, b, out_dtype=torch.float32)
 
 

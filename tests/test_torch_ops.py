@@ -327,6 +327,13 @@ ids = torch.from_numpy(_shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))).to(
 dout = randn(8 * 196, 128)
 rs = torch.ones(1000, device=dev)
 xn, wn, bn = randn(1000, 768), randn(768, dtype=torch.float32), randn(768, dtype=torch.float32)
+f32 = torch.float32
+x6 = randn(2 * 392, 128)
+w6 = (1 + randn(128, std=0.1, dtype=f32), randn(128, std=0.1, dtype=f32),
+      randn(384, 128, std=128 ** -0.5, dtype=f32), randn(384, std=0.1, dtype=f32))
+p6 = (randn(128, 128, std=128 ** -0.5, dtype=f32), randn(128, std=0.1, dtype=f32))
+bias6 = randn(4, 392, 392, dtype=f32)
+ids6 = torch.from_numpy(_shift_region_ids((16, 14, 14), (8, 7, 7), (4, 3, 3))[:2]).to(dev)
 cases = {
     "K1": (lambda: ops.flat2_window_attention(qkv, bias, ids, 32 ** -0.5, 4, 196),
            lambda: ops.window_attention_plain(qkv, bias, ids, 32 ** -0.5, 4, 196)),
@@ -343,6 +350,8 @@ cases = {
                                                         196)[1],
                  lambda: ops.window_attention_bwd_plain(qkv, bias, ids, dout, 32 ** -0.5, 4,
                                                         196)[1]),
+    "K6": (lambda: ops.fused_window_attn_block(x6, *w6, bias6, ids6, *p6, 32 ** -0.5, 4, 392),
+           lambda: ops.window_attn_block_plain(x6, *w6, bias6, ids6, *p6, 32 ** -0.5, 4, 392)),
     "K2 stash z": (lambda: ops.fused_ln_mlp_residual_stash(x2, *w2, 1e-5, "tanh", rs)[1][0],
                    lambda: ops.ln_mlp_residual_plain(x2, *w2, 1e-5, "tanh", row_scale=rs,
                                                      want_stash=True)[1][0]),

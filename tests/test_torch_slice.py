@@ -126,9 +126,28 @@ def test_retrieval_loop_matches_the_jax_loop(captions):
     assert got == want
 
 
+# printed by a subprocess: the modules of JAX and of the JAX package it loaded
+_FOREIGN_MODULES = """
+foreign = sorted(m for m in sys.modules
+                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                 or m == "clover_tpu" or m.startswith("clover_tpu."))
+print("FOREIGN_MODULES", foreign)
+"""
+
+
+def _run_isolated(code):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", code + _FOREIGN_MODULES], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "FOREIGN_MODULES []" in proc.stdout, proc.stdout
+
+
 def test_port_imports_no_jax():
     """Importing clover_tpu_torch and running the tiny slice through the eval
-    loop leaves jax out of sys.modules."""
+    loop leaves jax, and every module of the JAX package (clover_tpu and
+    clover_tpu.*), out of sys.modules."""
     code = textwrap.dedent("""
         import sys, types
         import numpy as np, torch
@@ -155,12 +174,18 @@ def test_port_imports_no_jax():
             types.SimpleNamespace(text_video_ids=[[i] for i in range(4)]), iter(batches),
             bias_cache=lambda m, dims: swin_bias_cache(m.backbone, cfg.swin, dims))
         assert np.isfinite(metrics["Recall@1"]), metrics
-        jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib")))
-        print("JAX_MODULES", jax_mods)
     """)
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (REPO, os.environ.get("PYTHONPATH")) if p))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+    _run_isolated(code)
+
+
+def test_chip_smoke_and_every_port_module_import_nothing_of_jax():
+    """A bare ``import chip_smoke`` plus an import of every module of
+    clover_tpu_torch leaves jax and the JAX package out of sys.modules."""
+    _run_isolated(textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import chip_smoke
+        import clover_tpu_torch
+        for mod in pkgutil.walk_packages(clover_tpu_torch.__path__, "clover_tpu_torch."):
+            importlib.import_module(mod.name)
+        assert "clover_tpu_torch.ops.attn_block" in sys.modules
+    """))
