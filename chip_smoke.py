@@ -35,6 +35,13 @@ Phases, in order; any failure raises and exits non-zero:
    of both paths; with --profile, trace a few more steps of each path (and,
    in phase 5b, the kernel path's 32-frame forwards) with torch.profiler
    and print the device time by kernel family;
+8b. the 32-frame finetune step (B=16 clips of 32 x 224^2: every Swin block
+   at N=392 runs its attention half as the fused half-block in training --
+   K6 with DropPath's per-window row scale forward, a backward that
+   recomputes it through K1 and K5 at 25 key tiles): K1, K5 and K6 (with a
+   row scale) against their plain versions at the four stage shapes,
+   unshifted and shifted, and K2's stash form; then phases 7 and 8 at 32
+   frames from the seeded weights again;
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -82,9 +89,15 @@ COS32_MIN = 0.999               # kernel-path vs plain-path embeddings, per row
 # mean |kernel - plain| must stay below the mean error of the same plain
 # output with its branch rounded once more to bf16, bf16(x + bf16(p - x))
 PEAK_BF16, PEAK_FP32, PEAK_BYTES = 989e12, 67e12, 3.35e12   # H100 SXM, dense
-# the retrieval finetune (bench.py's bench_finetune): B=16 clips of 12 frames
+# the retrieval finetune (bench.py's bench_finetune): B=16 clips of 12 frames,
+# and of 32 (BENCH_FRAMES=32, the DiDeMo recipe's frames)
 TB, TT = 16, 12
 TRAIN_STEPS = 5
+# kernel launches per train step: at 12 frames the attention half is K1
+# forward, K5 backward; at 32 (N=392) K6 forward, its backward's recompute
+# K1 and K5; K2's stash form in every block; LayerNorm and the BERT FFN plain
+TRAIN_LAUNCHES = {TT: {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0},
+                  T32: {"K6": 24, "K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0}}
 OPTIM = dict(base_lr=1.2e-5, total_steps=1000, warmup_steps=10)
 GRAD_CLIP = 15.0
 # kernel path vs plain path at train step 1 (same weights, batch and dropout
@@ -174,6 +187,14 @@ def attention_work(Bn, N, nH, ids, products=2, row_widths=4, dbias=False):
     return bound_ms(flops=products * 2 * Bn * nH * N * N * 32, nbytes=nbytes)
 
 
+def attn_block_work(Bn, N, C, nH, ids, extra_bytes=0):
+    """K6's bound: the qkv, attention and proj products; x in, out, the fp32
+    weights and biases, the fp32 bias, the region ids."""
+    return bound_ms(flops=2 * Bn * N * (4 * C * C + 2 * N * C),
+                    nbytes=4 * Bn * N * C + 16 * C * C + 24 * C + 4 * nH * N * N
+                    + (0 if ids is None else ids.size * 4) + extra_bytes)
+
+
 def mlp_work(rows, C, H, extra_bytes=0):
     """The MLP half's bound: two rows x C x H products; x in, out, the fp32
     weights and biases."""
@@ -254,12 +275,9 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
         args = (x, w[0], w[1], w[2], w[3], bias, rid, w[4], w[5], scale, nH, N)
         k = lambda: ops.fused_window_attn_block(*args)   # noqa: E731
         p = lambda: ops.window_attn_block_plain(*args)   # noqa: E731
-        work = bound_ms(flops=2 * Bn * N * (4 * C * C + 2 * N * C),
-                        nbytes=4 * Bn * N * C + 16 * C * C + 24 * C + 4 * nH * N * N
-                        + (0 if ids is None else ids.size * 4))
         record("K6", "fused_window_attn_block", f"Bn={Bn} N={N} C={C} nH={nH} "
                f"mask={'yes' if ids is not None else 'no'}", k(), p(), cuda_ms(k, 3),
-               cuda_ms(p, 2), count, work=work)
+               cuda_ms(p, 2), count, work=attn_block_work(Bn, N, C, nH, ids))
         del x, bias, args
 
     for (rows, C), count in calls["K2"]:
@@ -353,16 +371,19 @@ def attn_block_weights(randn, C):
             randn(C, C, std=C ** -0.5, dtype=f), randn(C, std=0.1, dtype=f))
 
 
-def train_path_shapes(cfg):
-    """Per-step kernel calls of the finetune step: {kernel: [(args, count)]}.
-    K1 (forward) and K5 (backward) run once per Swin block, K2's stash form
-    once per block; LayerNorm and the BERT FFN stay plain in training."""
-    from clover_tpu_torch.models.swin3d import _shift_region_ids, effective_window
+def train_path_shapes(cfg, frames=TT):
+    """Per-step kernel calls of the finetune step at ``frames`` frames:
+    {kernel: [(args, count)]}. K1 and K5 run once per Swin block at the same
+    shapes (below N=384 K1 in the forward; at N >= 384 in the recompute of
+    K6's backward, K6 in the forward), K2's stash form once per block;
+    LayerNorm and the BERT FFN stay plain in training."""
+    from clover_tpu_torch.models.swin3d import (_shift_region_ids, effective_window,
+                                                fused_attn_enabled)
 
     sw = cfg.swin
-    dims = (TT // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
+    dims = (frames // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
     shift = tuple(s // 2 for s in sw.window_size)
-    calls = {"K1": [], "K2S": []}
+    calls = {"K1": [], "K2S": [], "K6": []}
     for i, depth in enumerate(sw.depths):
         C, nH = sw.embed_dim * 2 ** i, sw.num_heads[i]
         rows = TB * int(np.prod(dims))
@@ -370,32 +391,36 @@ def train_path_shapes(cfg):
         N = int(np.prod(window))
         ids = _shift_region_ids(dims, window, sh)
         n_shifted = depth // 2 if ids is not None else 0
-        calls["K1"].append(((rows // N, N, nH, None), depth - n_shifted))
-        if n_shifted:
-            calls["K1"].append(((rows // N, N, nH, ids), n_shifted))
+        attn = ["K1", "K6"] if fused_attn_enabled(sw.fused_attn, N) else ["K1"]
+        for k in attn:
+            calls[k].append(((rows // N, N, nH, None), depth - n_shifted))
+            if n_shifted:
+                calls[k].append(((rows // N, N, nH, ids), n_shifted))
         calls["K2S"].append(((rows, C), depth))
         dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
     return calls
 
 
-def train_kernel_phase(cfg, dev, results):
-    """K1 at the 12-frame window, K5 and K2's stash form against their plain
-    versions at the finetune step's shapes; times per train step."""
+def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
+    """K1, K5, K2's stash form and, at 32 frames, K6 with a row scale
+    against their plain versions at the finetune step's shapes; times per
+    train step."""
     import torch
 
     from clover_tpu_torch import ops
     from clover_tpu_torch.models.swin3d import _shift_region_ids
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     record = recorder(results, "step")
-    calls = train_path_shapes(cfg)
-    # the region mask at nH=32 too (stage 3 has no shifted block at 12 frames)
-    ids_extra = _shift_region_ids((6, 14, 14), (6, 7, 7), (0, 3, 3))[:1]
-    calls["K1"].append(((TB, 294, 32, ids_extra), 0))
+    calls = train_path_shapes(cfg, frames)
+    if frames == TT:
+        # the region mask at nH=32 too (stage 3 has no shifted block at 12 frames)
+        ids_extra = _shift_region_ids((6, 14, 14), (6, 7, 7), (0, 3, 3))[:1]
+        calls["K1"].append(((TB, 294, 32, ids_extra), 0))
     scale = 32 ** -0.5
     library = {}   # SDPA forward and backward per unshifted shape
     for (Bn, N, nH, ids), count in calls["K1"]:
@@ -422,7 +447,28 @@ def train_kernel_phase(cfg, dev, results):
                work=attention_work(Bn, N, nH, ids, products=5, row_widths=7, dbias=True),
                lib=lib_b)
         record("K5", "flat2_window_attention_bwd", label, dbias, rdbias, 0.0, 0.0, 0, "dbias")
-        del dqkv, dbias, rdqkv, rdbias
+        del qkv, grad, dqkv, dbias, rdqkv, rdbias
+
+    for (Bn, N, nH, ids), count in calls["K6"]:
+        # DropPath's per-window row scale, one factor per sample: every
+        # fourth sample's windows 0, the rest 1/0.9
+        C = nH * 32
+        keep = torch.where(torch.arange(TB, device=dev) % 4 == 1, 0.0, 1 / 0.9)
+        rs = keep.repeat_interleave(Bn // TB)
+        x, w = randn(Bn * N, C), attn_block_weights(randn, C)
+        bias = randn(nH, N, N, dtype=torch.float32)
+        rid = None if ids is None else torch.from_numpy(ids).to(dev)
+        args = (x, w[0], w[1], w[2], w[3], bias, rid, w[4], w[5], scale, nH, N, 1e-5, rs)
+        k = lambda: ops.fused_window_attn_block(*args)   # noqa: E731
+        p = lambda: ops.window_attn_block_plain(*args)   # noqa: E731
+        out = k()
+        for b in (rs == 0).nonzero().flatten().tolist():
+            check(torch.equal(out.view(Bn, N, C)[b], x.view(Bn, N, C)[b]),
+                  f"K6 row scale: dropped window {b} does not pass x through")
+        record("K6", "fused_window_attn_block", f"Bn={Bn} N={N} C={C} nH={nH} "
+               f"mask={'yes' if ids is not None else 'no'} row_scale=yes", out, p(),
+               cuda_ms(k, 3), cuda_ms(p, 2), count, work=attn_block_work(Bn, N, C, nH, ids, 4 * Bn))
+        del x, bias, args, out
 
     for (rows, C), count in calls["K2S"]:
         x, w = randn(rows, C), mlp_weights(randn, C, 4 * C)
@@ -456,17 +502,17 @@ def mlp_weights(randn, C, H):
             randn(C, std=0.1, dtype=torch.float32))
 
 
-def make_train_batches(cfg, dev):
-    """Seeded host-s2d uint8 clips (TB, 1, 6, 56, 56, 96) and captions of
-    varied length, on the card."""
+def make_train_batches(cfg, dev, frames_per_clip=TT):
+    """Seeded host-s2d uint8 clips (TB, 1, frames/2, 56, 56, 96) and captions
+    of varied length, on the card."""
     import torch
 
     from clover_tpu_torch.ops.preprocess import space_to_depth_host
 
-    rng = np.random.default_rng(SEED + 2)
+    rng = np.random.default_rng(SEED + 2 if frames_per_clip == TT else SEED + 5)
     batches = []
     for _ in range(TRAIN_STEPS):
-        frames = rng.integers(0, 256, size=(TB, TT, S, S, 3), dtype=np.uint8)
+        frames = rng.integers(0, 256, size=(TB, frames_per_clip, S, S, 3), dtype=np.uint8)
         lengths = rng.integers(8, L + 1, size=TB)
         tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(TB, L))
         tok[:, 0] = 101                                   # [CLS]
@@ -599,16 +645,17 @@ def profile_eval_path(model, cfg, batches, dev, wall_ms: float, label: str) -> N
     profile_runs([lambda a=a: step(*a, cache) for a in on_dev], wall_ms, label, "forward")
 
 
-def train_phase(model, plain, cfg, dev, card, profile: bool):
-    """Drive the train path with the kernels and with the plain versions from
-    the same weights; check launches, gradients and the agreement; with
-    ``profile``, then trace each path's steps. -> the launch counts of the
-    kernel path's run."""
+def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
+    """Drive the train path at ``frames`` frames with the kernels and with
+    the plain versions from the same weights; check launches, gradients and
+    the agreement; with ``profile``, then trace each path's steps. -> the
+    launch counts of the kernel path's run."""
     import torch
 
     from clover_tpu_torch import ops
 
-    batches = make_train_batches(cfg, dev)
+    batches = make_train_batches(cfg, dev, frames)
+    tag = f"train ({frames} frames)"
     wrappers = {"K1": ops.flat2_window_attention, "K5": ops.flat2_window_attention_bwd,
                 "K2S": ops.fused_ln_mlp_residual_stash, "K2": ops.fused_ln_mlp_residual,
                 "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm,
@@ -616,18 +663,18 @@ def train_phase(model, plain, cfg, dev, card, profile: bool):
     ops.reset_launch_counts()
     k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev)
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    per_step = {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0}
-    print(f"train launches over {TRAIN_STEPS} steps: {counts} (expected per step: {per_step})",
+    per_step = TRAIN_LAUNCHES[frames]
+    print(f"{tag} launches over {TRAIN_STEPS} steps: {counts} (expected per step: {per_step})",
           flush=True)
     for k, n in per_step.items():
         check(counts[k] == n * TRAIN_STEPS,
-              f"train {k}: {counts[k]} launches, expected {n * TRAIN_STEPS}")
+              f"{tag} {k}: {counts[k]} launches, expected {n * TRAIN_STEPS}")
 
     ops.reset_launch_counts()
     p_metrics, p_grads, p_sec, p_peak = drive_train_path(plain, batches, dev)
     check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain train path launched a kernel")
     for i, (km, pm) in enumerate(zip(k_metrics, p_metrics)):
-        print(f"train step {i + 1}: kernels {km} plain {pm}")
+        print(f"{tag} step {i + 1}: kernels {km} plain {pm}")
         check(all(np.isfinite(v) for v in km.values()), f"step {i + 1}: non-finite metric {km}")
     k1, p1 = k_metrics[0], p_metrics[0]
     loss_rel = abs(k1["loss"] - p1["loss"]) / abs(p1["loss"])
@@ -641,22 +688,22 @@ def train_phase(model, plain, cfg, dev, card, profile: bool):
             cos[name] = torch.nn.functional.cosine_similarity(g.reshape(1, -1),
                                                               gp.reshape(1, -1)).item()
     worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
-    print(f"train step 1, kernels vs plain: loss rel {loss_rel:.3e} (bound {TRAIN_LOSS_RTOL}), "
+    print(f"{tag} step 1, kernels vs plain: loss rel {loss_rel:.3e} (bound {TRAIN_LOSS_RTOL}), "
           f"grad_norm rel {gnorm_rel:.3e} (bound {TRAIN_GNORM_RTOL}), min gradient cosine "
           f"{worst[0][1]:.6f} over {len(cos)} tensors (bound {TRAIN_COS_MIN}); lowest {worst}",
           flush=True)
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"train loss differs: {loss_rel:.3e}")
-    check(gnorm_rel <= TRAIN_GNORM_RTOL, f"train grad_norm differs: {gnorm_rel:.3e}")
-    check(worst[0][1] >= TRAIN_COS_MIN, f"train gradients differ: {worst}")
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"{tag} loss differs: {loss_rel:.3e}")
+    check(gnorm_rel <= TRAIN_GNORM_RTOL, f"{tag} grad_norm differs: {gnorm_rel:.3e}")
+    check(worst[0][1] >= TRAIN_COS_MIN, f"{tag} gradients differ: {worst}")
     steady = lambda sec: TB * (len(sec) - 2) / sum(sec[2:])   # noqa: E731  (2 warm-up steps)
-    print(f"train clips/s (B={TB}, {TT}x{S}^2, L={L}, steps 3-{TRAIN_STEPS}): kernels "
+    print(f"train clips/s (B={TB}, {frames}x{S}^2, L={L}, steps 3-{TRAIN_STEPS}): kernels "
           f"{steady(k_sec):.2f} plain {steady(p_sec):.2f}; step seconds kernels "
           f"{[round(t, 4) for t in k_sec]} plain {[round(t, 4) for t in p_sec]}; peak memory "
           f"kernels {k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}",
           flush=True)
     if profile:
-        profile_train_path(model, batches, dev, TB * 1e3 / steady(k_sec), "kernel")
-        profile_train_path(plain, batches, dev, TB * 1e3 / steady(p_sec), "plain")
+        profile_train_path(model, batches, dev, TB * 1e3 / steady(k_sec), f"kernel {frames}-frame")
+        profile_train_path(plain, batches, dev, TB * 1e3 / steady(p_sec), f"plain {frames}-frame")
     return counts
 
 
@@ -784,8 +831,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of clover_tpu_torch on one CUDA card.")
     ap.add_argument("--profile", action="store_true",
                     help="trace the kernel path's 32-frame eval forwards and each path's "
-                         "train steps with torch.profiler and print the device time by "
-                         "kernel family")
+                         "12- and 32-frame train steps with torch.profiler and print the "
+                         "device time by kernel family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -815,11 +862,12 @@ def main(argv=None) -> int:
     cfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True), text_bert=BertConfig())
     results = kernel_phase(cfg, dev)
 
-    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True)
+    # built on the card (CloverFinetune's default device)
+    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True).eval()
     init_params(model, torch.Generator().manual_seed(SEED))
-    model = model.to(dev).eval()
-    plain = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=False).to(dev).eval()
+    plain = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=False).eval()
     plain.load_state_dict(model.state_dict())
+    check(all(p.device == dev for p in model.parameters()), "the model is not on the card")
     batches = make_batches(cfg)
 
     wrappers = {"K1": ops.flat2_window_attention, "K2": ops.fused_ln_mlp_residual,
@@ -868,6 +916,13 @@ def main(argv=None) -> int:
     plain.train()
     train_counts = train_phase(model, plain, cfg, dev, card, profile)
 
+    # the 32-frame finetune step, both paths from the seeded weights again
+    train32 = {}
+    train_kernel_phase(cfg, dev, train32, T32, SEED + 4)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    plain.load_state_dict(model.state_dict())
+    train32_counts = train_phase(model, plain, cfg, dev, card, profile, T32)
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -877,22 +932,29 @@ def main(argv=None) -> int:
                "K5": ("csrc/window_attention_bwd.cu", "clover_tpu/ops/window_attention.py:2499"),
                "K2S": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
                "K6": ("csrc/attn_block.cu", "clover_tpu/ops/attn_block.py:489")}
-    rows = [(k, results, counts, f"eval, ms per forward, launches over {N_BATCHES} forwards")
-            for k in ("K1", "K2", "K3", "K4")]
+    # at N=392 the TPU runs the attention and its backward as the head-group
+    # kernels, which K1 and K5 replace there
+    sources32 = dict(sources, K1=(sources["K1"][0], "clover_tpu/ops/window_attention.py:989"),
+                     K5=(sources["K5"][0], "clover_tpu/ops/window_attention.py:1905"))
+    rows = [(k, results, counts, f"eval, ms per forward, launches over {N_BATCHES} forwards",
+             sources) for k in ("K1", "K2", "K3", "K4")]
     rows += [(k, results32, counts32,
-              f"eval32, ms per forward, launches over {N32_BATCHES} forwards")
+              f"eval32, ms per forward, launches over {N32_BATCHES} forwards", sources)
              for k in ("K6", "K2", "K3", "K4")]
     rows += [(k, train, train_counts,
-              f"train, ms per step, launches over {TRAIN_STEPS} steps")
+              f"train, ms per step, launches over {TRAIN_STEPS} steps", sources)
              for k in ("K1", "K5", "K2S")]
+    rows += [(k, train32, train32_counts,
+              f"train32, ms per step, launches over {TRAIN_STEPS} steps", sources32)
+             for k in ("K6", "K1", "K5", "K2S")]
     table = [{"name": res[k]["name"], "route": "cuda",
-              "source": "clover_tpu_torch/" + sources[k][0], "replaces": sources[k][1],
+              "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
               "bound_ms": res[k]["bound_ms"],
               "bound_by": "operations" if res[k]["ops_ms"] >= res[k]["bytes_ms"] else "bytes",
               "library_ms": res[k]["library_ms"], "path": path}
-             for k, res, n, path in rows]
+             for k, res, n, path, src in rows]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

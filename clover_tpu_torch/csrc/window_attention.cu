@@ -14,6 +14,9 @@
 // bytes of q/k/v/out plus the L2-resident bias, i.e. ~N/2 flop per byte:
 // at N=196 the kernel sits below the ridge, so the (N, N) logits must never
 // reach device memory and the softmax must not serialise the warps.
+// Also replaces ::_forward_flat_grouped, the head-group form the TPU takes
+// at N=392 (the 32-frame 8x7x7 window), where all heads' bias does not fit
+// its VMEM: a block per (window, head) never needs head groups.
 // Design: one block per (window, head), 4 warps. The block stages the
 // head's q, k, v (N padded to a multiple of 16 with zero rows) in shared
 // memory. Each warp takes 16-row query strips and keeps the strip's whole
@@ -22,9 +25,11 @@
 // bias comes in that accumulator order (the wrapper lays it out once per
 // call, -inf in the padded keys), so a lane reads its strip's bias as NT
 // coalesced 8-byte loads. Padded query rows are never stored. Past 16 key
-// tiles (N > 256: the 12-frame window 6x7x7, N=294) the strip is walked
-// in two key parts with an online max / sum rescale; up to 16 tiles it
-// stays one pass. The TPU kernel's static softmax shift and region-lanes
+// tiles (N > 256: the 12-frame window 6x7x7, N=294; the 32-frame 8x7x7,
+// N=392) the strip is walked in key parts of at most 10 steps with an
+// online max / sum rescale (19 tiles: 10 + 9, 25: 9 + 8 + 8); up to 16
+// tiles it stays one pass. Shared memory at 25 tiles: q, k, v at 400
+// padded rows, 96 KB. The TPU kernel's static softmax shift and region-lanes
 // mask are TPU devices and are not carried over.
 
 #include "window_attention.cuh"
@@ -107,8 +112,8 @@ int launch(const void* qkv, const void* bias, const void* ids, void* out, int Bn
 
 // key_tiles: 16-key tiles the caller padded N (and laid out the bias) to.
 // The logits strip lives in registers, so it is a template argument with
-// these instances: Swin's windows 6x7x7 (N=294, 12 frames), 4x7x7 (N=196),
-// 2x7x7 (N=98), smaller.
+// these instances: Swin's windows 8x7x7 (N=392, 32 frames), 6x7x7 (N=294,
+// 12 frames), 4x7x7 (N=196), 2x7x7 (N=98), smaller.
 extern "C" int clover_window_attention(const void* qkv, const void* bias, const void* ids,
                                        void* out, int Bn, int N, int nH, int nW, int key_tiles,
                                        float scale, void* stream) {
@@ -125,6 +130,7 @@ extern "C" int clover_window_attention(const void* qkv, const void* bias, const 
     case 13: return launch<13>(qkv, bias, ids, out, Bn, N, nH, nW, scale, st);
     case 16: return launch<16>(qkv, bias, ids, out, Bn, N, nH, nW, scale, st);
     case 19: return launch<19>(qkv, bias, ids, out, Bn, N, nH, nW, scale, st);
+    case 25: return launch<25>(qkv, bias, ids, out, Bn, N, nH, nW, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -12,28 +12,34 @@
 // Replaces clover_tpu/ops/window_attention.py::_backward_flat2 and
 // ::_backward_flat2_grouped (the Pallas kernels behind the custom vjp of
 // flat2_window_attention), and ::_backward_flat / ::_backward_flat_grouped,
-// the same function on a (Bn, N, 3C) view. The math is _bwd_softmax_core's
-// default p32 form with the true row max.
+// the same function on a (Bn, N, 3C) view; the grouped form is what the
+// TPU runs at N=392 (the 32-frame 8x7x7 window, 25 key tiles here). The
+// math is _bwd_softmax_core's default p32 form with the true row max.
 //
 // Bound on the H100: 9 products of N x N x hd per (window, head) against
 // ~12*N*hd bytes of q/k/v/g/dq/dk/dv, i.e. compute-bound on the tensor cores
 // once the (N, N) logits stay out of device memory. dbias is the other
 // cost: (nH, N, N) fp32 summed over up to 1024 windows.
-// Design: one block of 4 warps per (window chunk, head) walks the chunk's
-// windows. It stages the head's qs, k, v, g (N padded to a multiple of 16,
-// zero rows) in shared memory. Phase R: each warp takes 16-row query
-// strips, sweeps the keys once for the row max, sum and rowsum(dp * P)
-// (online, per lane, combined over the quad), keeps them in shared memory,
+// Design: one block of 4 warps (8 at 25 key tiles, see kWarps) per
+// (window chunk, head) walks the chunk's windows. It stages the head's qs,
+// k, v, g (N padded to a multiple of 16, zero rows) in shared memory.
+// Phase R: each warp takes 16-row query strips, sweeps the keys once for
+// the row max, sum and rowsum(dp * P) (online, per lane, combined over the
+// quad), keeps them in shared memory,
 // then sweeps again for dlog, multiplies it into dq from registers and adds
 // it into the block's dbias partial. Phase C: each warp takes 16-key tiles
 // and walks all query strips with the transposed products, so dk and dv
 // sum over the queries in registers and no two warps write one row. All
 // products are mma.sync m16n8k16, bf16 in, fp32 accumulate; a lane never
 // holds more than two 8-key tiles of logits, so any N the staging fits
-// takes no extra registers. dbias is deterministic: each block owns an
-// (Np, Np) fp32 partial per chunk in device memory, stored in the
-// accumulators' order (coalesced float4 per lane) and owned by one lane
-// per element, and a second kernel sums the chunks in a fixed order.
+// takes no extra registers (the key loops run to the window's strips, not
+// to KT: KT sets only the staging and the bias layout). Shared memory at
+// 25 tiles: qs, k, v, g at 400 padded rows and the row statistics, 134 KB,
+// one block an SM, so that instance runs 8 warps a block. dbias is
+// deterministic: each block owns an (Np, Np) fp32 partial per chunk in
+// device memory, stored in the accumulators' order (coalesced float4 per
+// lane) and owned by one lane per element, and a second kernel sums the
+// chunks in a fixed order.
 
 #include "common.cuh"
 
@@ -41,14 +47,19 @@ namespace clover {
 namespace {
 
 constexpr int kHd = 32;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kLd = kHd + 8;  // row stride of the staged tiles: no ldmatrix bank conflicts
 
 template <int KT>
 constexpr size_t bwd_smem_bytes() {
   return align128(size_t(4) * KT * 16 * kLd * sizeof(bf16)) + KT * 16 * (3 * sizeof(float) + sizeof(int));
 }
+
+// warps a block: 4 while two blocks fit an SM's shared memory; past that
+// (25 key tiles) one block an SM would run 4 warps alone, so it takes 8.
+// Strips and key tiles are owned by one warp whatever the count, so the
+// outputs do not depend on it.
+template <int KT>
+constexpr int kWarps = 2 * bwd_smem_bytes<KT>() <= 227 * 1024 ? 4 : 8;
 
 // logits of one 8-key tile from its raw product: + bias + region mask
 __device__ __forceinline__ void add_bias_mask(float (&l)[4], const float (&s)[4], uint2 bv,
@@ -68,7 +79,7 @@ __device__ __forceinline__ void add_bias_mask(float (&l)[4], const float (&s)[4]
 
 // KT: 16-key tiles, N <= 16 * KT
 template <int KT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWarps<KT> * 32)
 window_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ grad,
                             const bf16* __restrict__ bias_r, const bf16* __restrict__ bias_c,
                             const int* __restrict__ ids, bf16* __restrict__ dqkv,
@@ -101,7 +112,7 @@ window_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
     // stage qs = bf16(q * scale), k, v, g of this (window, head)
     const bf16* base = qkv + (long)b * N * 3 * C + h * kHd;
     const bf16* gbase = grad + (long)b * N * C + h * kHd;
-    for (int i = threadIdx.x; i < Np * 4; i += kThreads) {
+    for (int i = threadIdx.x; i < Np * 4; i += kWarps<KT> * 32) {
       const int r = i >> 2, part8 = (i & 3) * 8;
       uint4 qv = make_uint4(0, 0, 0, 0), kv = qv, vv = qv, gv = qv;
       if (r < N) {
@@ -123,14 +134,14 @@ window_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
       *reinterpret_cast<uint4*>(gs + r * kLd + part8) = gv;
     }
     if (masked) {
-      for (int r = threadIdx.x; r < Np; r += kThreads) {
+      for (int r = threadIdx.x; r < Np; r += kWarps<KT> * 32) {
         id_s[r] = r < N ? ids[(long)(b % nW) * N + r] : -1;
       }
     }
     __syncthreads();
 
     // ---- phase R: query strips -> row statistics, dq, dbias
-    for (int s = warp; s < strips; s += kWarps) {
+    for (int s = warp; s < strips; s += kWarps<KT>) {
       unsigned qa[2][4], ga[2][4];
       ldmatrix_x4(qa[0], a_tile_row(qs + s * 16 * kLd, kLd, lane));
       ldmatrix_x4(qa[1], a_tile_row(qs + s * 16 * kLd + 16, kLd, lane));
@@ -245,7 +256,7 @@ window_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict
     __syncthreads();  // row statistics of every strip are in shared memory
 
     // ---- phase C: 16-key tiles -> dk, dv summed over all query strips
-    for (int kt = warp; kt < strips; kt += kWarps) {
+    for (int kt = warp; kt < strips; kt += kWarps<KT>) {
       unsigned ka[2][4], va[2][4];
       ldmatrix_x4(ka[0], a_tile_row(ks + kt * 16 * kLd, kLd, lane));
       ldmatrix_x4(ka[1], a_tile_row(ks + kt * 16 * kLd + 16, kLd, lane));
@@ -349,7 +360,7 @@ int launch_bwd(const void* qkv, const void* grad, const void* bias_r, const void
   cudaError_t err = cudaFuncSetAttribute(window_attention_bwd_kernel<KT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  window_attention_bwd_kernel<KT><<<dim3(chunks, nH), kThreads, smem, stream>>>(
+  window_attention_bwd_kernel<KT><<<dim3(chunks, nH), kWarps<KT> * 32, smem, stream>>>(
       (const bf16*)qkv, (const bf16*)grad, (const bf16*)bias_r, (const bf16*)bias_c,
       (const int*)ids, (bf16*)dqkv, (float*)part, Bn, N, nH, nW, chunks, scale);
   return (int)cudaGetLastError();
@@ -385,6 +396,7 @@ extern "C" int clover_window_attention_bwd(const void* qkv, const void* grad, co
     CLOVER_BWD_CASE(13)
     CLOVER_BWD_CASE(16)
     CLOVER_BWD_CASE(19)
+    CLOVER_BWD_CASE(25)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef CLOVER_BWD_CASE

@@ -4,9 +4,12 @@
 and ``forward_text`` are the same towers split for serving;
 ``forward_train`` is the retrieval finetune's forward (``train()`` mode).
 
-``kernels=True`` runs the CUDA kernels on a CUDA device (a CPU tensor
-always takes the plain versions); ``kernels=False`` runs the plain PyTorch
-versions everywhere, the reference the kernels are held against.
+The model is built on ``device``, the card (``cuda``) unless the caller
+asks for the CPU (``device='cpu'``, as the CPU tests do); with no card the
+default construction raises. ``kernels=True`` runs the CUDA kernels on a
+CUDA device (a CPU tensor always takes the plain versions);
+``kernels=False`` runs the plain PyTorch versions everywhere, the reference
+the kernels are held against.
 """
 
 from __future__ import annotations
@@ -36,13 +39,19 @@ class FinetuneConfig:
 
 class CloverFinetune(nn.Module):
     def __init__(self, config: FinetuneConfig = FinetuneConfig(),
-                 dtype: torch.dtype = torch.float32, kernels: bool = True):
+                 dtype: torch.dtype = torch.float32, kernels: bool = True,
+                 device="cuda"):
         super().__init__()
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("CloverFinetune: no CUDA device for the default device='cuda'; "
+                               "pass device='cpu' to build the model on the CPU")
         self.config, self.dtype = config, dtype
-        self.backbone = SwinTransformer3D(config.swin, kernels)
-        self.text_backbone = BertTextEncoder(config.text_bert, dtype, kernels)
-        self.ssl_head = NCEHeadForMM(config.swin.num_features, config.text_bert.hidden_size,
-                                     config.img_hidden_dim, config.vts_embed_dim)
+        with device:
+            self.backbone = SwinTransformer3D(config.swin, kernels)
+            self.text_backbone = BertTextEncoder(config.text_bert, dtype, kernels)
+            self.ssl_head = NCEHeadForMM(config.swin.num_features, config.text_bert.hidden_size,
+                                         config.img_hidden_dim, config.vts_embed_dim)
 
     def _visual_feat(self, imgs: torch.Tensor, n_text: int,
                      bias_cache: Optional[Dict[str, torch.Tensor]],

@@ -125,30 +125,43 @@ class ProjectorNorm(nn.Module):
         return self.norm(x)
 
 
+@torch.no_grad()
+def _draw(t: torch.Tensor, generator: torch.Generator, fill) -> None:
+    """fill(buffer, generator) on a buffer on the generator's device, copied
+    into t: the same seed gives the same values whatever t's device."""
+    buf = torch.empty(t.shape, dtype=t.dtype, device=generator.device)
+    fill(buf, generator)
+    t.copy_(buf)
+
+
 def trunc_normal_(t: torch.Tensor, generator: torch.Generator, std: float = 0.02) -> None:
     """timm's trunc_normal_(std=.02): cut at two standard deviations."""
-    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    _draw(t, generator, lambda b, g: nn.init.trunc_normal_(b, std=std, a=-2 * std, b=2 * std,
+                                                           generator=g))
 
 
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded random weights with the JAX package's initializers. Modules
-    that own raw parameters initialise them in ``init_weights(generator)``."""
+    """Seeded random weights with the JAX package's initializers, drawn on
+    the generator's device (the CPU's for a ``torch.Generator()``) and copied
+    to each parameter's device. Modules that own raw parameters initialise
+    them in ``init_weights(generator)``."""
     for m in model.modules():
         if hasattr(m, "init_weights"):
             m.init_weights(generator)
         elif isinstance(m, Linear):
             if m.init == "xavier":
                 bound = math.sqrt(6.0 / (m.in_features + m.out_features))
-                nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+                _draw(m.weight, generator,
+                      lambda b, g: nn.init.uniform_(b, -bound, bound, generator=g))
             elif m.init == "normal":
-                nn.init.normal_(m.weight, std=0.02, generator=generator)
+                _draw(m.weight, generator, lambda b, g: nn.init.normal_(b, std=0.02, generator=g))
             else:
                 trunc_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            nn.init.normal_(m.weight, std=0.02, generator=generator)
+            _draw(m.weight, generator, lambda b, g: nn.init.normal_(b, std=0.02, generator=g))
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

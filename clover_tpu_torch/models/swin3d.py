@@ -6,14 +6,16 @@ the patch embed, window-resident stages (activations stay partitioned into
 windows for a whole stage; a shifted block permutes tokens in and out), the
 flat window attention (kernel K1, its backward K5), the fused
 LN2+MLP+residual half (kernel K2; in training its stash form), the
-forward-only LayerNorm sites (kernel K4, eval only) and, in eval at large
-windows (``SwinConfig.fused_attn``), the fused LN1+attention+proj+residual
-half (kernel K6) in place of LN1, qkv, K1 and proj. In training (``train()``
-mode) DropPath is drawn per sample from the generator passed to
-``forward``, and the relative-position bias comes from the table at every
-block so that it gets a gradient. Layout is channels-last (B, T, H, W, C) as
-in the JAX package; parameter names follow its tree (``stage_{i}_block_{j}``,
-``patch_embed``, ``stage_{i}_downsample``, ``norm``).
+forward-only LayerNorm sites (kernel K4, eval only) and, at large windows
+(``SwinConfig.fused_attn``), the fused LN1+attention+proj+residual half
+(kernel K6) in place of LN1, qkv, K1 and proj; in training through
+``FusedAttnBlockFn``, whose backward recomputes the half through K1 and K5.
+In training (``train()`` mode) DropPath is drawn per sample from the
+generator passed to ``forward``, and the relative-position bias comes from
+the table at every block so that it gets a gradient. Layout is
+channels-last (B, T, H, W, C) as in the JAX package; parameter names follow
+its tree (``stage_{i}_block_{j}``, ``patch_embed``, ``stage_{i}_downsample``,
+``norm``).
 """
 
 from __future__ import annotations
@@ -28,7 +30,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from clover_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, trunc_normal_
-from clover_tpu_torch.ops.attn_block import fused_window_attn_block, window_attn_block_plain
+from clover_tpu_torch.ops.attn_block import (
+    FusedAttnBlockFn,
+    fused_window_attn_block,
+    window_attn_block_plain,
+)
 from clover_tpu_torch.ops.mlp_block import (
     FusedLnMlpResidualFn,
     fused_ln_mlp_residual,
@@ -285,10 +291,11 @@ class SwinBlock3D(nn.Module):
     fused LN2 + MLP + DropPath + residual half (``SwinBlock3D.
     _window_resident_call`` and ``_mlp_half`` of the JAX package). In
     training the two halves draw their per-sample DropPath masks separately
-    from ``generator``; the MLP half's rides K2 as a per-row scale. In eval,
-    where ``fused_attn`` picks it for the block's window size, the first half
-    is one call of the fused half-block (K6, ``_fused_resident_half`` of the
-    JAX package) on the block's own parameters."""
+    from ``generator``; the MLP half's rides K2 as a per-row scale. Where
+    ``fused_attn`` picks it for the block's window size, the first half is
+    the fused half-block (K6, ``_fused_resident_half`` of the JAX package) on
+    the block's own parameters: in eval one call of it, in training
+    ``FusedAttnBlockFn`` with DropPath as a per-window row scale."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -315,7 +322,7 @@ class SwinBlock3D(nn.Module):
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
             region_ids = _device_constant("region_ids", tuple(dims), window, shift, x.device)
         if fused_attn_enabled(self.fused_attn, int(np.prod(window))):
-            x = self._fused_attn_half(x, window, region_ids, bias)
+            x = self._fused_attn_half(x, window, region_ids, bias, generator)
         else:
             xn = self.norm1(x)
             attn = self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
@@ -326,15 +333,13 @@ class SwinBlock3D(nn.Module):
         return x
 
     def _fused_attn_half(self, x: torch.Tensor, window: Tuple3,
-                         region_ids: Optional[torch.Tensor],
-                         bias: Optional[torch.Tensor]) -> torch.Tensor:
-        """x + proj(window_attention(LN1(x))) in one call of K6 (its plain
-        version with ``kernels=False``), from norm1's and attn's parameters."""
-        if self.training:
-            raise NotImplementedError(
-                "the fused attention half-block runs in eval only; training at windows "
-                "of N >= 384 (the 32-frame retrieval-finetune train step) needs its "
-                "backward, which is the next slice of the port")
+                         region_ids: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+                         generator: Optional[torch.Generator]) -> torch.Tensor:
+        """x + s * proj(window_attention(LN1(x))) from norm1's and attn's
+        parameters: in eval one call of K6 (its plain version with
+        ``kernels=False``), s = 1; in training ``FusedAttnBlockFn`` with s
+        DropPath's per-sample factor repeated over the sample's windows (the
+        JAX block's (B,) -> (Bn,) row scale)."""
         attn = self.attn
         N = int(np.prod(window))
         B, L, C = x.shape
@@ -344,10 +349,17 @@ class SwinBlock3D(nn.Module):
         bqkv = attn.qkv.bias
         if bqkv is None:
             bqkv = torch.zeros(3 * C, device=x.device)
-        op = fused_window_attn_block if self.kernels else window_attn_block_plain
-        out = op(x.reshape(-1, C), self.norm1.weight, self.norm1.bias, attn.qkv.weight, bqkv,
-                 bias, region_ids, attn.proj.weight, attn.proj.bias, attn.scale,
-                 attn.num_heads, N, self.norm1.eps)
+        args = (x.reshape(-1, C), self.norm1.weight, self.norm1.bias, attn.qkv.weight, bqkv,
+                bias, region_ids, attn.proj.weight, attn.proj.bias)
+        if not self.training:
+            op = fused_window_attn_block if self.kernels else window_attn_block_plain
+            return op(*args, attn.scale, attn.num_heads, N, self.norm1.eps).view(B, L, C)
+        row_scale = None
+        if self.drop_path.active():
+            row_scale = self.drop_path.sample_scale(B, generator, x.device).repeat_interleave(
+                L // N)
+        out = FusedAttnBlockFn.apply(*args, row_scale, attn.scale, attn.num_heads, N,
+                                     self.norm1.eps, self.kernels)
         return out.view(B, L, C)
 
     def _mlp_half(self, x: torch.Tensor,

@@ -4,6 +4,7 @@ runs the plain version only for a CPU tensor; its ``launches`` attribute
 counts kernel launches."""
 
 from clover_tpu_torch.ops.attn_block import (  # noqa: F401
+    FusedAttnBlockFn,
     fused_window_attn_block,
     window_attn_block_plain,
 )

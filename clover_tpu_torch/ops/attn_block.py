@@ -27,6 +27,13 @@ max, as K1 does.
 
 The wrapper launches ``csrc/attn_block.cu`` for a CUDA tensor and runs
 :func:`window_attn_block_plain` for a CPU tensor.
+
+``FusedAttnBlockFn`` is the half-block in training, the port of the JAX
+custom vjp (``_fwd`` / ``_bwd``): the forward is K6 (with DropPath's row
+scale) and saves only its inputs; the backward recomputes the same function
+from ops that carry their own backward (``_composed_reference``: LN1, the
+qkv product, ``WindowAttentionFn`` -- K1 forward, K5 backward --, proj) and
+takes its gradients with ``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,12 @@ import torch
 from clover_tpu_torch.ops import _build
 from clover_tpu_torch.ops.layer_norm import layer_norm_plain
 from clover_tpu_torch.ops.mlp_block import _mm_f32
-from clover_tpu_torch.ops.window_attention import fragment_bias, window_attention_plain
+from clover_tpu_torch.ops.window_attention import (
+    WindowAttentionFn,
+    fragment_bias,
+    window_attention_plain,
+    window_chunk,
+)
 
 KEY_TILES = (13, 25)     # K6's instances: N <= 208 (4x7x7 windows), N <= 400 (8x7x7)
 # the plain version's (chunk, nH, N, N) fp32 logits stay under this many
@@ -46,13 +58,8 @@ _PLAIN_LOGITS = 1 << 27
 
 
 def _window_chunk(Bn: int, nW: int, num_heads: int, N: int) -> int:
-    """Windows per chunk of the plain version: a multiple of nW (so each
-    chunk starts at mask row 0) that divides Bn."""
-    per = max(1, _PLAIN_LOGITS // (nW * num_heads * N * N))
-    groups = Bn // nW
-    while groups % per:
-        per -= 1
-    return per * nW
+    """Windows per chunk of the plain version (LN1, qkv, attention, proj)."""
+    return window_chunk(Bn, nW, num_heads, N, _PLAIN_LOGITS)
 
 
 def window_attn_block_plain(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj,
@@ -125,6 +132,89 @@ def fused_window_attn_block(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, 
                   _build.stream(dev))
     fused_window_attn_block.launches += 1
     return out
+
+
+class LinearF32Fn(torch.autograd.Function):
+    """``x w^T + b`` of compute-dtype operands with an fp32 result (the JAX
+    ``dot(..., preferred_element_type=f32)``; cuBLAS's bf16-in / fp32-out
+    GEMM on the card). Backward: the fp32 output gradient rounded to x's
+    dtype, then products of compute-dtype operands; dx in x's dtype, dw and
+    db in the parameters' dtypes.
+
+    ``LinearF32Fn.apply(x, w, b)``: x (rows, K), w (O, K), b (O,)"""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        wd = w.to(x.dtype)
+        ctx.save_for_backward(x, wd)
+        ctx.dtypes = (w.dtype, b.dtype)
+        return _mm_f32(x, wd.t()) + b.to(torch.promote_types(x.dtype, torch.float32))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wd = ctx.saved_tensors
+        g_d = g.to(x.dtype)
+        dx = _mm_f32(g_d, wd).to(x.dtype)
+        dw = _mm_f32(g_d.t(), x)
+        return dx, dw.to(ctx.dtypes[0]), g.sum(0).to(ctx.dtypes[1])
+
+
+def composed_attn_block(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj,
+                        row_scale, scale: float, num_heads: int, N: int, eps: float,
+                        kernels: bool):
+    """The half-block from ops that each carry a backward (the JAX
+    ``_composed_reference``): LN1 in fp32 rounded to x's dtype, the qkv
+    product in fp32 plus b_qkv rounded, ``WindowAttentionFn`` (K1 and K5 with
+    ``kernels``, else their plain versions), the proj product in fp32 plus
+    b_proj, times the row scale, plus x in fp32, rounded once."""
+    M, C = x.shape
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xn = layer_norm_plain(x, ln_w, ln_b, eps)
+    qkv = LinearF32Fn.apply(xn, wqkv, bqkv).to(x.dtype)
+    o = WindowAttentionFn.apply(qkv, bias, region_ids, scale, num_heads, N, kernels)
+    y = LinearF32Fn.apply(o, wproj, bproj)
+    if row_scale is not None:
+        y = (y.view(-1, N, C) * row_scale.to(acc)[:, None, None]).view(M, C)
+    return (x.to(acc) + y).to(x.dtype)
+
+
+class FusedAttnBlockFn(torch.autograd.Function):
+    """The fused half-block with its backward. Forward: K6 with the row scale
+    (``kernels=True``; its plain version for CPU tensors) or the plain
+    version (``kernels=False``); it saves x, the parameters, the bias and the
+    row scale, not K6's attention output. Backward: :func:`composed_attn_block`
+    recomputed under ``torch.enable_grad()`` (with ``kernels``, K1 runs once
+    more there and K5 takes its backward), then ``torch.autograd.grad`` to x,
+    the LN1 and qkv / proj parameters and the bias. The region ids and the
+    row scale get no gradient (the JAX package's zero shift-mask-gradient
+    contract; the row scale is DropPath's draw).
+
+    ``FusedAttnBlockFn.apply(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids,
+    wproj, bproj, row_scale, scale, num_heads, N, eps, kernels)``"""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, row_scale,
+                scale, num_heads, N, eps, kernels):
+        fwd = fused_window_attn_block if kernels else window_attn_block_plain
+        out = fwd(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, scale, num_heads,
+                  N, eps, row_scale)
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj,
+                              row_scale)
+        ctx.args = (scale, num_heads, N, eps, kernels)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, row_scale = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_() for t in (x, ln_w, ln_b, wqkv, bqkv, bias, wproj,
+                                                         bproj)]
+        with torch.enable_grad():
+            out = composed_attn_block(*leaves[:6], region_ids, *leaves[6:], row_scale,
+                                      *ctx.args)
+        dx, dln_w, dln_b, dwqkv, dbqkv, dbias, dwproj, dbproj = torch.autograd.grad(
+            out, leaves, g)
+        return (dx, dln_w, dln_b, dwqkv, dbqkv, dbias, None, dwproj, dbproj, None, None, None,
+                None, None, None)
 
 
 fused_window_attn_block.launches = 0

@@ -12,7 +12,10 @@ same function on a (Bn, N, 3C) view of the same memory).
 N) -> (dqkv2, dbias)`` is its backward (K5), the port of ``_backward_flat2``
 (and ``_backward_flat``): the softmax recomputed from qkv2, dbias (nH, N, N)
 fp32 summed over the windows, no gradient for the mask.
-``WindowAttentionFn`` ties the two into autograd.
+``WindowAttentionFn`` ties the two into autograd. At N=392 (the 32-frame
+8x7x7 window) the same kernels, at 25 key tiles, also stand for the TPU's
+head-group forms ``_forward_flat_grouped`` and ``_backward_flat_grouped``:
+a block per (window, head) never needs head groups.
 
 The shift mask is given as per-window region ids (nW, N) int32: keys in
 another region than the query get -100, which is the reference's additive
@@ -28,7 +31,11 @@ import torch
 from clover_tpu_torch.ops import _build
 
 MASK_VALUE = -100.0
-KEY_TILES = (4, 7, 13, 16, 19)   # the kernels' instances: N <= 16 * key tiles
+KEY_TILES = (4, 7, 13, 16, 19, 25)   # the kernels' instances: N <= 16 * key tiles
+# the plain versions' (chunk, nH, N, N) fp32 logits stay under this many
+# elements: unchunked, stage 0 of the 32-frame train step at B=16 would hold
+# several (2048, 4, 392, 392) fp32 tensors, 5.0 GB each
+_PLAIN_LOGITS = 1 << 27
 
 
 def region_mask(region_ids: torch.Tensor, dtype) -> torch.Tensor:
@@ -37,11 +44,37 @@ def region_mask(region_ids: torch.Tensor, dtype) -> torch.Tensor:
     return torch.where(diff, MASK_VALUE, 0.0).to(dtype)
 
 
+def window_chunk(Bn: int, nW: int, num_heads: int, N: int, budget=None) -> int:
+    """Windows per chunk of a plain version: a multiple of nW (so each chunk
+    starts at mask row 0) that divides Bn, with the chunk's (chunk, nH, N, N)
+    logits under ``budget`` elements (``_PLAIN_LOGITS`` when None) where one
+    nW-group allows it."""
+    budget = _PLAIN_LOGITS if budget is None else budget
+    groups = Bn // nW
+    per = min(groups, max(1, budget // (nW * num_heads * N * N)))
+    while groups % per:
+        per -= 1
+    return per * nW
+
+
 def window_attention_plain(qkv2, bias, region_ids, scale: float, num_heads: int,
                            N: int):
     """Plain PyTorch version: fp32 logits and softmax (float64 for float64
     inputs), probabilities rounded to the compute dtype before the product
-    with v."""
+    with v; over chunks of windows (:func:`window_chunk`)."""
+    M, threeC = qkv2.shape
+    nW = 1 if region_ids is None else region_ids.shape[0]
+    step = window_chunk(M // N, nW, num_heads, N) * N
+    if step >= M:
+        return _attention_plain(qkv2, bias, region_ids, scale, num_heads, N)
+    out = qkv2.new_empty((M, threeC // 3))
+    for r0 in range(0, M, step):
+        out[r0:r0 + step] = _attention_plain(qkv2[r0:r0 + step], bias, region_ids, scale,
+                                             num_heads, N)
+    return out
+
+
+def _attention_plain(qkv2, bias, region_ids, scale: float, num_heads: int, N: int):
     M, threeC = qkv2.shape
     C = threeC // 3
     hd = C // num_heads
@@ -80,8 +113,25 @@ def window_attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_hea
                                N: int):
     """Plain PyTorch version of the backward: the same math as K5 (and as
     ``_bwd_softmax_core``'s p32 form with the true row max), with products
-    of compute-dtype values taken in fp32. -> (dqkv2 (Bn*N, 3C) in qkv2's
-    dtype, dbias (nH, N, N) fp32, float64 for float64 inputs)."""
+    of compute-dtype values taken in fp32, over chunks of windows
+    (:func:`window_chunk`), dbias summed over them in fp32. -> (dqkv2
+    (Bn*N, 3C) in qkv2's dtype, dbias (nH, N, N) fp32, float64 for float64
+    inputs)."""
+    M, threeC = qkv2.shape
+    nW = 1 if region_ids is None else region_ids.shape[0]
+    step = window_chunk(M // N, nW, num_heads, N) * N
+    if step >= M:
+        return _attention_bwd_plain(qkv2, bias, region_ids, g2, scale, num_heads, N)
+    dqkv2, dbias = torch.empty_like(qkv2), None
+    for r0 in range(0, M, step):
+        d, db = _attention_bwd_plain(qkv2[r0:r0 + step], bias, region_ids, g2[r0:r0 + step],
+                                     scale, num_heads, N)
+        dqkv2[r0:r0 + step] = d
+        dbias = db if dbias is None else dbias.add_(db)
+    return dqkv2, dbias
+
+
+def _attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int):
     M, threeC = qkv2.shape
     C = threeC // 3
     hd = C // num_heads

@@ -198,13 +198,18 @@ def test_auto_takes_the_fused_branch_from_384_tokens(dims, fused, monkeypatch):
     assert calls == ["fused" if fused else "unfused"]
 
 
-def test_fused_branch_refuses_training():
-    """In train() mode the fused branch raises; it does not fall back to
-    the unfused path."""
+def test_fused_branch_refuses_training(monkeypatch):
+    """In train() mode the fused branch runs (the 32-frame train step, see
+    test_torch_train32.py) but, with DropPath active, refuses to run without
+    an explicit generator; it does not fall back to the unfused path."""
     dims = (16, 14, 14)
-    block = _tiny_block("auto", shifted=False).train()
-    with pytest.raises(NotImplementedError, match="32-frame"):
-        block(_tokens(dims), dims, generator=torch.Generator().manual_seed(0))
+    monkeypatch.setattr(pswin.WindowAttentionFn, "apply",
+                        lambda *a: pytest.fail("the fused branch took the unfused path"))
+    block = pswin.SwinBlock3D(64, 2, (8, 7, 7), (0, 0, 0), drop_path=0.1).train()
+    with pytest.raises(ValueError, match="Generator"):
+        block(_tokens(dims), dims)
+    out = block(_tokens(dims), dims, generator=torch.Generator().manual_seed(0))
+    assert out.shape == (2, 16 * 14 * 14, 64) and out.requires_grad
 
 
 def test_fused_attn_config_is_checked():

@@ -29,7 +29,7 @@ def tiny_models():
     jcfg = JFinetuneConfig(swin=JSwinConfig(embed_impl="host_s2d", **SWIN),
                            text_bert=JBertConfig(**BERT), task="retrieval")
     pcfg = FinetuneConfig(swin=SwinConfig(**SWIN), text_bert=BertConfig(**BERT))
-    return JCloverFinetune(jcfg, dtype=jnp.float32), CloverFinetune(pcfg)
+    return JCloverFinetune(jcfg, dtype=jnp.float32), CloverFinetune(pcfg, device="cpu")
 
 
 def tiny_inputs(seed=0):

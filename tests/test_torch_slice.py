@@ -160,7 +160,7 @@ def test_port_imports_no_jax():
                             fold_normalize=True),
             text_bert=BertConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=2,
                                  intermediate_size=256))
-        model = CloverFinetune(cfg).eval()
+        model = CloverFinetune(cfg, device="cpu").eval()
         init_params(model, torch.Generator().manual_seed(0))
         rng = np.random.default_rng(0)
         batches = [{"imgs": space_to_depth_host(

@@ -51,7 +51,8 @@ def slice32(request):
     jm = JCloverFinetune(JFinetuneConfig(
         swin=JSwinConfig(embed_impl="host_s2d", attention_impl="pallas_flat", **SWIN),
         text_bert=JBertConfig(**BERT), task="retrieval"), dtype=jnp.float32)
-    pm = CloverFinetune(FinetuneConfig(swin=SwinConfig(**SWIN), text_bert=BertConfig(**BERT)))
+    pm = CloverFinetune(FinetuneConfig(swin=SwinConfig(**SWIN), text_bert=BertConfig(**BERT)),
+                        device="cpu")
     imgs, tok, mask = _inputs()
     params = random_jax_params(jm, imgs, tok, mask)
     mp = pytest.MonkeyPatch()

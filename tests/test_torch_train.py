@@ -54,7 +54,7 @@ def tiny_train_models():
         task="retrieval")
     pcfg = FinetuneConfig(swin=SwinConfig(drop_path_rate=0.0, **SWIN),
                           text_bert=BertConfig(hidden_dropout=0.0, attention_dropout=0.0, **BERT))
-    return JCloverFinetune(jcfg, dtype=jnp.float32), CloverFinetune(pcfg)
+    return JCloverFinetune(jcfg, dtype=jnp.float32), CloverFinetune(pcfg, device="cpu")
 
 
 def _batch(seed, n_clips=1):
@@ -348,4 +348,4 @@ def tiny_model_with_dropout():
     """The tiny port model with DropPath 0.1 and the BERT dropouts at 0.1."""
     pcfg = FinetuneConfig(swin=SwinConfig(drop_path_rate=0.1, **SWIN),
                           text_bert=BertConfig(**BERT))
-    return CloverFinetune(pcfg)
+    return CloverFinetune(pcfg, device="cpu")
