@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of clover_tpu_torch's retrieval-eval and retrieval-finetune
-paths on one CUDA card.
+"""Smoke run of clover_tpu_torch's retrieval-eval, retrieval-finetune and
+pretrain paths on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -42,6 +42,16 @@ Phases, in order; any failure raises and exits non-zero:
    row scale) against their plain versions at the four stage shapes,
    unshifted and shifted, and K2's stash form; then phases 7 and 8 at 32
    frames from the seeded weights again;
+8c. the tri-modal pretrain step (bench.py's bench_train: Swin-B with the
+   SimMIM mask token + BERT-base + the 3-layer fusion tower, B=8 clips of
+   8 x 224^2 and L=30, the clean and masked passes batched to 2B=16; AdamW
+   5e-5 with 10 warmup steps, clip 15): K1, K5 and K2's stash form at the
+   16-clip Swin shapes and K3M (the masked post-LN FFN, the fusion tower's
+   3616 rows under fused_mlp_train='auto') against their plain versions;
+   then 5 steps of make_pretrain_train_step with the kernels and with the
+   plain versions from one seed: launches per step, finite gradients, every
+   loss key, step 1 compared, clips/s and peak memory (and, with
+   --profile, 3 more steps of each path traced);
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -80,7 +90,8 @@ TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 
        # ~1e-7 of max|p| observed; each limit must stay below the error of the
        # same values rounded to bf16 (checked), and rstd's below an eps of
        # 1e-6 for 1e-5 at unit variance (~4.5e-6)
-       "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6)}
+       "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6),
+       "K3M": (2e-2, 2e-2)}
 # the 32-frame retrieval eval (bench.py's BENCH_FRAMES=32, B=32): every
 # Swin block at N=392 through the fused half-block K6
 T32, N32_BATCHES = 32, 2
@@ -96,8 +107,10 @@ TRAIN_STEPS = 5
 # kernel launches per train step: at 12 frames the attention half is K1
 # forward, K5 backward; at 32 (N=392) K6 forward, its backward's recompute
 # K1 and K5; K2's stash form in every block; LayerNorm and the BERT FFN plain
-TRAIN_LAUNCHES = {TT: {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0},
-                  T32: {"K6": 24, "K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0}}
+TRAIN_LAUNCHES = {TT: {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0,
+                       "K3M": 0},
+                  T32: {"K6": 24, "K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0,
+                        "K3M": 0}}
 OPTIM = dict(base_lr=1.2e-5, total_steps=1000, warmup_steps=10)
 GRAD_CLIP = 15.0
 # kernel path vs plain path at train step 1 (same weights, batch and dropout
@@ -106,6 +119,17 @@ GRAD_CLIP = 15.0
 # BERT key biases are left out: their gradient is zero in exact arithmetic,
 # softmax does not see q.b_k, so both paths hold only rounding noise there)
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_COS_MIN = 5e-3, 5e-3, 0.995
+# the pretrain step (bench.py's bench_train): B=8 clips of 8 frames, whose
+# clean and masked passes make the Swin's and the fusion tower's batch 2B=16;
+# every Swin block at N=196 (K1 forward, K5 backward, K2's stash form), the
+# fusion tower's FFN on the fused route (K3M: 16 x (4*49 + 30) = 3616 rows >=
+# 2048 under fused_mlp_train='auto'), the text tower's 480 rows plain
+PB, PT = 8, 8
+PRETRAIN_ROWS = 2 * PB * (PT // 2 * 49 + L)
+PRETRAIN_OPTIM = dict(base_lr=5e-5, total_steps=1000, warmup_steps=10)
+PRETRAIN_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24, "K3M": 3, "K2": 0, "K3": 0, "K4": 0,
+                     "K6": 0}
+PRETRAIN_LOSSES = ("mlm_loss", "nce_loss", "rank_t_tm_loss", "v_nce_loss", "rank_v_vm_loss")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -536,12 +560,13 @@ def make_train_step(model, dev):
     return state, step, torch.Generator(device=dev).manual_seed(SEED)
 
 
-def drive_train_path(model, batches, dev):
-    """The finetune path for TRAIN_STEPS steps. -> (metrics per step, step
-    1's gradients, seconds per step, peak bytes)."""
+def drive_train_path(model, batches, dev, make=make_train_step):
+    """A train path (``make``: the finetune step, or the pretrain step) for
+    TRAIN_STEPS steps. -> (metrics per step, step 1's gradients, seconds per
+    step, peak bytes)."""
     import torch
 
-    state, step, generator = make_train_step(model, dev)
+    state, step, generator = make(model, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     metrics, seconds, grads1 = [], [], None
@@ -567,7 +592,8 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
     ("K6b proj + residual", ("attn_block_proj_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),
     ("K5 window-attention backward", ("window_attention_bwd_kernel", "dbias_finish")),
-    ("K2 / K3 / K2 stash MLP halves", ("mlp_kernel", "postln_finish")),
+    ("K3 / K3M post-LN FFN", ("mlp_kernel<32, 768, false>", "postln_finish")),
+    ("K2 / K2 stash MLP halves", ("mlp_kernel",)),
     ("K4 LayerNorm", ("layer_norm_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
     ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
@@ -613,10 +639,11 @@ def profile_runs(runs, wall_ms: float, label: str, unit: str) -> None:
         print(f"  {t:9.3f} {round(n):5d}  {name[:110]}")
 
 
-def profile_train_path(model, batches, dev, wall_ms: float, label: str) -> None:
+def profile_train_path(model, batches, dev, wall_ms: float, label: str,
+                       make=make_train_step) -> None:
     """The train step's device time by kernel family, over the batches
     after two warm-up steps."""
-    state, step, generator = make_train_step(model, dev)
+    state, step, generator = make(model, dev)
     for batch in batches[:2]:
         state, _ = step(state, batch, generator)
 
@@ -645,25 +672,42 @@ def profile_eval_path(model, cfg, batches, dev, wall_ms: float, label: str) -> N
     profile_runs([lambda a=a: step(*a, cache) for a in on_dev], wall_ms, label, "forward")
 
 
+TRAIN_WRAPPERS = ("K1", "K5", "K2S", "K2", "K3", "K4", "K6", "K3M")
+
+
+def train_wrappers():
+    from clover_tpu_torch import ops
+
+    return dict(zip(TRAIN_WRAPPERS, (
+        ops.flat2_window_attention, ops.flat2_window_attention_bwd,
+        ops.fused_ln_mlp_residual_stash, ops.fused_ln_mlp_residual, ops.fused_mlp_postln,
+        ops.fused_layer_norm, ops.fused_window_attn_block, ops.fused_mlp_postln_dropout)))
+
+
 def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
-    """Drive the train path at ``frames`` frames with the kernels and with
+    """Drive the finetune path at ``frames`` frames with the kernels and with
     the plain versions from the same weights; check launches, gradients and
     the agreement; with ``profile``, then trace each path's steps. -> the
     launch counts of the kernel path's run."""
+    return compare_train_paths(model, plain, make_train_batches(cfg, dev, frames), dev, card,
+                               profile, f"train ({frames} frames)", TRAIN_LAUNCHES[frames],
+                               f"B={TB}, {frames}x{S}^2, L={L}", TB, make_train_step)
+
+
+def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: str, per_step,
+                        shape: str, clips: int, make):
+    """The train step built by ``make`` on the kernel model and on the plain
+    one, TRAIN_STEPS steps each on ``batches``: launches per step, finite
+    metrics and gradients, step 1's loss, grad_norm and gradient cosines,
+    clips/s over steps 3-5 and peak memory. -> the kernel path's counts."""
     import torch
 
     from clover_tpu_torch import ops
 
-    batches = make_train_batches(cfg, dev, frames)
-    tag = f"train ({frames} frames)"
-    wrappers = {"K1": ops.flat2_window_attention, "K5": ops.flat2_window_attention_bwd,
-                "K2S": ops.fused_ln_mlp_residual_stash, "K2": ops.fused_ln_mlp_residual,
-                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm,
-                "K6": ops.fused_window_attn_block}
+    wrappers = train_wrappers()
     ops.reset_launch_counts()
-    k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev)
+    k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev, make)
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    per_step = TRAIN_LAUNCHES[frames]
     print(f"{tag} launches over {TRAIN_STEPS} steps: {counts} (expected per step: {per_step})",
           flush=True)
     for k, n in per_step.items():
@@ -671,8 +715,8 @@ def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
               f"{tag} {k}: {counts[k]} launches, expected {n * TRAIN_STEPS}")
 
     ops.reset_launch_counts()
-    p_metrics, p_grads, p_sec, p_peak = drive_train_path(plain, batches, dev)
-    check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain train path launched a kernel")
+    p_metrics, p_grads, p_sec, p_peak = drive_train_path(plain, batches, dev, make)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), f"the plain {tag} path launched a kernel")
     for i, (km, pm) in enumerate(zip(k_metrics, p_metrics)):
         print(f"{tag} step {i + 1}: kernels {km} plain {pm}")
         check(all(np.isfinite(v) for v in km.values()), f"step {i + 1}: non-finite metric {km}")
@@ -695,15 +739,120 @@ def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
     check(loss_rel <= TRAIN_LOSS_RTOL, f"{tag} loss differs: {loss_rel:.3e}")
     check(gnorm_rel <= TRAIN_GNORM_RTOL, f"{tag} grad_norm differs: {gnorm_rel:.3e}")
     check(worst[0][1] >= TRAIN_COS_MIN, f"{tag} gradients differ: {worst}")
-    steady = lambda sec: TB * (len(sec) - 2) / sum(sec[2:])   # noqa: E731  (2 warm-up steps)
-    print(f"train clips/s (B={TB}, {frames}x{S}^2, L={L}, steps 3-{TRAIN_STEPS}): kernels "
+    steady = lambda sec: clips * (len(sec) - 2) / sum(sec[2:])   # noqa: E731  (2 warm-up steps)
+    print(f"{tag} clips/s ({shape}, steps 3-{TRAIN_STEPS}): kernels "
           f"{steady(k_sec):.2f} plain {steady(p_sec):.2f}; step seconds kernels "
           f"{[round(t, 4) for t in k_sec]} plain {[round(t, 4) for t in p_sec]}; peak memory "
           f"kernels {k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}",
           flush=True)
     if profile:
-        profile_train_path(model, batches, dev, TB * 1e3 / steady(k_sec), f"kernel {frames}-frame")
-        profile_train_path(plain, batches, dev, TB * 1e3 / steady(p_sec), f"plain {frames}-frame")
+        profile_train_path(model, batches, dev, clips * 1e3 / steady(k_sec), f"kernel {tag}",
+                           make)
+        profile_train_path(plain, batches, dev, clips * 1e3 / steady(p_sec), f"plain {tag}",
+                           make)
+    return counts
+
+
+def pretrain_config():
+    """bench_train's configuration (bench.py:402-416) with the fused FFN
+    route on ('auto', the JAX CLOVER_BERT_MLP_TRAIN): Swin-B with the mask
+    token and the raw-clip embed, BERT-base, the 3-layer fusion tower."""
+    from clover_tpu_torch.models import BertConfig, FusionConfig, PretrainConfig, SwinConfig
+
+    return PretrainConfig(
+        swin=SwinConfig.base(mask_token=True, embed_impl="conv"),
+        text_bert=BertConfig(fused_mlp_train="auto"),
+        fusion=FusionConfig(bert=BertConfig(num_hidden_layers=3, fused_mlp_train="auto"),
+                            img_in_size=1024, num_frames=PT // 2, spatial_tokens=49))
+
+
+def pretrain_kernel_phase(cfg, dev, results, seed=SEED + 7):
+    """K3M against its plain version at the fusion tower's shape, a seeded
+    mask at keep 0.9; times per pretrain step (one call per fusion layer)."""
+    import torch
+
+    from clover_tpu_torch import ops
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
+
+    bt = cfg.fusion.bert
+    rows, C, H = PRETRAIN_ROWS, bt.hidden_size, bt.intermediate_size
+    x, w = randn(rows, C), mlp_weights(randn, C, H)
+    mask = (torch.rand(rows, C, generator=g, device=dev) < 0.9).float() / 0.9
+    eps = bt.layer_norm_eps
+    k = lambda: ops.fused_mlp_postln_dropout(x, *w, mask, eps)   # noqa: E731
+    p = lambda: ops.mlp_postln_mask_plain(x, *w, mask, eps)   # noqa: E731
+    # the fp32 mask is read once besides K3's x, out and weights
+    recorder(results, "step")("K3M", "fused_mlp_postln_dropout", f"rows={rows} C={C} keep=0.9",
+                              k(), p(), cuda_ms(k, 20), cuda_ms(p, 20), bt.num_hidden_layers,
+                              work=mlp_work(rows, C, H, extra_bytes=4 * rows * C))
+
+
+def make_pretrain_batches(dev):
+    """bench_train's seeded batches (bench.py:418-431), on the card: clips
+    normal * 0.5 (PB, PT, 224, 224, 3), ids in [1000, 30000) with position 3
+    masked to 103 and its label kept, an all-ones attention mask, a random
+    0/1 (PB, 7, 7) video mask."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 6)
+    batches = []
+    for _ in range(TRAIN_STEPS):
+        tok = rng.integers(1000, 30000, size=(PB, L))
+        label = np.full((PB, L), -100)
+        label[:, 3] = tok[:, 3]
+        tok[:, 3] = 103
+        batches.append({
+            "imgs": torch.from_numpy(rng.normal(size=(PB, PT, S, S, 3)).astype(np.float32) * 0.5),
+            "token_ids": torch.from_numpy(tok), "input_mask": torch.ones(PB, L, dtype=torch.long),
+            "mlm_label": torch.from_numpy(label),
+            "v_token_mask": torch.from_numpy(rng.integers(0, 2, size=(PB, 7, 7)))})
+    return [{k: v.to(dev) for k, v in b.items()} for b in batches]
+
+
+def make_pretrain_step(model, dev):
+    """The pretrain step as a user builds it (bench_train's optimizer and
+    clip). -> (state, step, dropout generator)."""
+    import torch
+
+    from clover_tpu_torch.engine import TrainState, make_optimizer, make_pretrain_train_step
+
+    optimizer, schedule = make_optimizer(model, **PRETRAIN_OPTIM)
+    state = TrainState.create(model, optimizer, schedule)
+    step = make_pretrain_train_step(model, grad_clip_norm=GRAD_CLIP)
+
+    def step_checked(state, batch, generator):
+        state, metrics = step(state, batch, generator)
+        check(set(metrics) == set(PRETRAIN_LOSSES) | {"loss", "grad_norm"},
+              f"pretrain metrics {sorted(metrics)}")
+        return state, metrics
+
+    return state, step_checked, torch.Generator(device=dev).manual_seed(SEED)
+
+
+def pretrain_phase(dev, card, profile: bool):
+    """The pretrain step from one seed with the kernels and with the plain
+    versions, as compare_train_paths checks it. -> the kernel path's counts."""
+    import torch
+
+    from clover_tpu_torch.models import CloverPretrain, init_params
+
+    cfg = pretrain_config()
+    check(2 * PB == TB and cfg.fusion.num_frames * cfg.fusion.spatial_tokens + L
+          == PRETRAIN_ROWS // (2 * PB), "pretrain shapes")
+    model = CloverPretrain(cfg, dtype=torch.bfloat16, kernels=True)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    plain = CloverPretrain(cfg, dtype=torch.bfloat16, kernels=False)
+    plain.load_state_dict(model.state_dict())
+    check(all(p.device == dev for p in model.parameters()), "the pretrain model is not on the card")
+    counts = compare_train_paths(model, plain, make_pretrain_batches(dev), dev, card, profile,
+                                 f"pretrain ({PT} frames)", PRETRAIN_LAUNCHES,
+                                 f"B={PB}, {PT}x{S}^2, L={L}", PB, make_pretrain_step)
+    del model, plain
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -831,8 +980,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of clover_tpu_torch on one CUDA card.")
     ap.add_argument("--profile", action="store_true",
                     help="trace the kernel path's 32-frame eval forwards and each path's "
-                         "12- and 32-frame train steps with torch.profiler and print the "
-                         "device time by kernel family")
+                         "12- and 32-frame finetune steps and pretrain steps with "
+                         "torch.profiler and print the device time by kernel family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -923,6 +1072,16 @@ def main(argv=None) -> int:
     plain.load_state_dict(model.state_dict())
     train32_counts = train_phase(model, plain, cfg, dev, card, profile, T32)
 
+    # the pretrain step, on its own models from the same seed
+    del model, plain
+    torch.cuda.empty_cache()
+    print(card_line(), flush=True)
+    pre = {}
+    pcfg = pretrain_config()
+    train_kernel_phase(pcfg, dev, pre, PT, SEED + 6)
+    pretrain_kernel_phase(pcfg, dev, pre)
+    pre_counts = pretrain_phase(dev, card, profile)
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -931,7 +1090,8 @@ def main(argv=None) -> int:
                "K4": ("csrc/layer_norm.cu", "clover_tpu/ops/layer_norm.py:64"),
                "K5": ("csrc/window_attention_bwd.cu", "clover_tpu/ops/window_attention.py:2499"),
                "K2S": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
-               "K6": ("csrc/attn_block.cu", "clover_tpu/ops/attn_block.py:489")}
+               "K6": ("csrc/attn_block.cu", "clover_tpu/ops/attn_block.py:489"),
+               "K3M": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:418")}
     # at N=392 the TPU runs the attention and its backward as the head-group
     # kernels, which K1 and K5 replace there
     sources32 = dict(sources, K1=(sources["K1"][0], "clover_tpu/ops/window_attention.py:989"),
@@ -947,6 +1107,9 @@ def main(argv=None) -> int:
     rows += [(k, train32, train32_counts,
               f"train32, ms per step, launches over {TRAIN_STEPS} steps", sources32)
              for k in ("K6", "K1", "K5", "K2S")]
+    rows += [(k, pre, pre_counts,
+              f"pretrain, ms per step, launches over {TRAIN_STEPS} steps", sources)
+             for k in ("K1", "K5", "K2S", "K3M")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],

@@ -2,10 +2,14 @@
 //
 //   K2 (pre-LN, Swin):  out = x + s * (gelu(LN(x) W1^T + b1) W2^T + b2)
 //   K3 (post-LN, BERT): out = LN(x + gelu(x W1^T + b1) W2^T + b2)
+//   K3M (K3 training):  out = LN(x + m * (gelu(x W1^T + b1) W2^T + b2))
 //
 // K2 replaces clover_tpu/ops/mlp_block.py::_forward (_kernel, behind
 // fused_ln_mlp_residual); K3 replaces ::_forward_postln (_kernel_postln,
-// behind fused_mlp_postln). W1 is the torch Linear weight (H, C), W2 is
+// behind fused_mlp_postln); K3M replaces ::_forward_postln_mask
+// (_kernel_postln_mask, behind fused_mlp_postln_dropout): K3 with the fp32
+// {0, 1/keep} hidden-dropout mask m applied in its second pass. W1 is the
+// torch Linear weight (H, C), W2 is
 // (C, H), both bf16; biases and LN affine are fp32. K2's training form
 // (_kernel_stash / _kernel_stash_scaled) takes the optional per-row fp32
 // scale s (DropPath's keep / keep_prob; 1 when absent) and stashes what the
@@ -287,12 +291,14 @@ mlp_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
 }
 
 // K3's second pass: out = LN(x + b2 + sum of the splits' partials), one warp
-// per row, the row's C <= 1024 values held in registers.
+// per row, the row's C <= 1024 values held in registers. K3M, with the fp32
+// (rows, C) dropout mask m: out = LN(x + (sum of the partials + b2) * m), the
+// JAX _kernel_postln_mask's order of operations.
 __global__ void __launch_bounds__(256)
 postln_finish_kernel(const bf16* __restrict__ x, const float* __restrict__ partial,
                      const float* __restrict__ b2, const float* __restrict__ ln_w,
-                     const float* __restrict__ ln_b, bf16* __restrict__ out, int rows, int C,
-                     int splits, float eps) {
+                     const float* __restrict__ ln_b, const float* __restrict__ mask,
+                     bf16* __restrict__ out, int rows, int C, int splits, float eps) {
   constexpr int kMaxPairs = 16;   // C <= 32 lanes * 2 * 16
   const int lane = threadIdx.x & 31;
   const long row = (long)blockIdx.x * 8 + (threadIdx.x >> 5);
@@ -305,12 +311,26 @@ postln_finish_kernel(const bf16* __restrict__ x, const float* __restrict__ parti
     if (c >= C) continue;
     float2 v = bf16x2_to_float2(*reinterpret_cast<const unsigned*>(x + row * C + c));
     const float2 bb = *reinterpret_cast<const float2*>(b2 + c);
-    v.x += bb.x;
-    v.y += bb.y;
-    for (int s = 0; s < splits; ++s) {
-      const float2 p = *reinterpret_cast<const float2*>(partial + ((long)s * rows + row) * C + c);
-      v.x += p.x;
-      v.y += p.y;
+    if (mask == nullptr) {
+      v.x += bb.x;
+      v.y += bb.y;
+      for (int s = 0; s < splits; ++s) {
+        const float2 p =
+            *reinterpret_cast<const float2*>(partial + ((long)s * rows + row) * C + c);
+        v.x += p.x;
+        v.y += p.y;
+      }
+    } else {
+      float2 y = *reinterpret_cast<const float2*>(partial + row * C + c);
+      for (int s = 1; s < splits; ++s) {
+        const float2 p =
+            *reinterpret_cast<const float2*>(partial + ((long)s * rows + row) * C + c);
+        y.x += p.x;
+        y.y += p.y;
+      }
+      const float2 m = *reinterpret_cast<const float2*>(mask + row * C + c);
+      v.x += (y.x + bb.x) * m.x;
+      v.y += (y.y + bb.y) * m.y;
     }
     z[i] = v;
     sum += v.x + v.y;
@@ -389,10 +409,12 @@ extern "C" int clover_ln_mlp_residual(const void* x, const void* ln_w, const voi
 
 // The hidden is split over `splits` blocks per row block; partial is their
 // fp32 workspace, splits x rows x C. C is BERT-base's width, the GELU erf.
+// mask (rows, C) fp32 or nullptr: K3M, the training form with the hidden
+// dropout, or K3.
 extern "C" int clover_mlp_postln(const void* x, const void* ln_w, const void* ln_b,
                                  const void* w1, const void* b1, const void* w2, const void* b2,
-                                 void* out, void* partial, int rows, int C, int H, int splits,
-                                 float eps, void* stream) {
+                                 void* out, const void* mask, void* partial, int rows, int C,
+                                 int H, int splits, float eps, void* stream) {
   using namespace clover;
   if (rows <= 0 || C != 768 || H <= 0 || splits <= 0 || H % (splits * kHc)) {
     return (int)cudaErrorInvalidValue;
@@ -404,6 +426,6 @@ extern "C" int clover_mlp_postln(const void* x, const void* ln_w, const void* ln
   if (rc != 0) return rc;
   postln_finish_kernel<<<(rows + 7) / 8, 256, 0, a.stream>>>(
       (const bf16*)x, (const float*)partial, (const float*)b2, (const float*)ln_w,
-      (const float*)ln_b, (bf16*)out, rows, C, splits, eps);
+      (const float*)ln_b, (const float*)mask, (bf16*)out, rows, C, splits, eps);
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,7 @@ from clover_tpu_torch.engine.optim import make_optimizer, weight_decay_mask  # n
 from clover_tpu_torch.engine.steps import (  # noqa: F401
     ema_momentum_schedule,
     make_embed_eval_step,
+    make_pretrain_train_step,
     make_retrieval_train_step,
 )
 from clover_tpu_torch.engine.train_state import TrainState  # noqa: F401

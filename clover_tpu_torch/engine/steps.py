@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from clover_tpu_torch.engine.train_state import TrainState
-from clover_tpu_torch.losses import retrieval_loss, total_loss
+from clover_tpu_torch.losses import PretrainLossConfig, pretrain_losses, retrieval_loss, total_loss
 
 
 def ema_momentum_schedule(kind: str = "constant", base: float = 0.9998,
@@ -61,6 +61,38 @@ def _finalize(state: TrainState, losses: Dict[str, torch.Tensor], ema_momentum,
     return state, metrics
 
 
+def _train_step(model, losses_of, ema_momentum, grad_clip_norm) -> Callable:
+    """``step(state, batch, generator) -> (state, metrics)``: the model's
+    ``forward_train`` in ``train()`` mode on ``fold_in(generator,
+    state.step)``, ``losses_of(outputs, batch)``, backward, ``_finalize``."""
+
+    def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        losses = losses_of(model.forward_train(batch, fold_in(generator, state.step)), batch)
+        total_loss(losses).backward()
+        return _finalize(state, {k: l.detach() for k, l in losses.items()}, ema_momentum,
+                         grad_clip_norm)
+
+    return step
+
+
+def make_pretrain_train_step(model, loss_cfg: PretrainLossConfig = PretrainLossConfig(),
+                             ema_momentum=None,
+                             grad_clip_norm: Optional[float] = None) -> Callable:
+    """The tri-modal pretrain step of ``CloverPretrain``: ``step(state,
+    batch, generator) -> (state, metrics)`` with metrics the loss terms of
+    ``pretrain_losses`` (``mlm_loss``, ``nce_loss``, ``rank_t_tm_loss``,
+    ``v_nce_loss``, ``rank_v_vm_loss``), ``loss`` and ``grad_norm``.
+    ``batch`` holds ``imgs``, ``token_ids``, ``input_mask``, ``mlm_label``
+    and ``v_token_mask`` on the model's device; otherwise as
+    ``make_retrieval_train_step``."""
+    return _train_step(model, lambda out, batch: pretrain_losses(out, batch["mlm_label"],
+                                                                 loss_cfg),
+                       ema_momentum, grad_clip_norm)
+
+
 def make_retrieval_train_step(model, temperature: float = 0.05, cos_sim: bool = True,
                               ema_momentum=None,
                               grad_clip_norm: Optional[float] = None) -> Callable:
@@ -71,17 +103,9 @@ def make_retrieval_train_step(model, temperature: float = 0.05, cos_sim: bool = 
     generator on that device. The state is updated in place. After the
     step the parameters' ``.grad`` hold the gradients the update used."""
 
-    def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
-        model.train()
-        for p in model.parameters():
-            p.grad = None
-        v, t = model.forward_train(batch, fold_in(generator, state.step))
-        losses = retrieval_loss(v, t, temperature=temperature, cos_sim=cos_sim)
-        total_loss(losses).backward()
-        return _finalize(state, {k: l.detach() for k, l in losses.items()}, ema_momentum,
-                         grad_clip_norm)
-
-    return step
+    return _train_step(model, lambda out, batch: retrieval_loss(*out, temperature=temperature,
+                                                               cos_sim=cos_sim),
+                       ema_momentum, grad_clip_norm)
 
 
 def make_embed_eval_step(model) -> Callable:

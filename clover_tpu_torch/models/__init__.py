@@ -5,8 +5,15 @@ from clover_tpu_torch.models.bridge import (  # noqa: F401
     state_from_jax,
 )
 from clover_tpu_torch.models.finetune import CloverFinetune, FinetuneConfig  # noqa: F401
-from clover_tpu_torch.models.heads import NCEHeadForMM  # noqa: F401
+from clover_tpu_torch.models.fusion import CrossModalTransformer, FusionConfig  # noqa: F401
+from clover_tpu_torch.models.heads import (  # noqa: F401
+    MLMHead,
+    NCEHeadForMM,
+    NCEHeadForText,
+    NCEHeadForVision,
+)
 from clover_tpu_torch.models.layers import init_params  # noqa: F401
+from clover_tpu_torch.models.pretrain import CloverPretrain, PretrainConfig  # noqa: F401
 from clover_tpu_torch.models.swin3d import (  # noqa: F401
     SwinConfig,
     SwinTransformer3D,

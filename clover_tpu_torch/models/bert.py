@@ -4,12 +4,16 @@ Post-LN encoder layers with HF semantics: additive -10000 key mask, erf
 GELU, LayerNorm eps 1e-12. In eval the embedding norm and the attention
 norms are the forward-only LayerNorm kernel sites (K4) and the FFN half is
 the post-LN MLP kernel (K3). In training (``train()`` mode) the JAX package
-keeps all of them in XLA, so they run plain here, with dropout on the
+keeps the norms in XLA, so they run plain here, with dropout on the
 embeddings, the attention probabilities and the hidden outputs drawn from
-the generator passed to ``forward``. Self-attention itself stays plain
-PyTorch, as it is plain XLA in the JAX package. Parameter names follow the
-JAX tree (``embeddings``, ``encoder.layer_{i}.{attention.{query,key,value},
-attention_output, attention_norm, intermediate, output, output_norm}``).
+the generator passed to ``forward``. The FFN half in training is plain too
+unless ``BertConfig.fused_mlp_train`` picks the fused route for the layer
+(the JAX ``CLOVER_BERT_MLP_TRAIN``): then it is ``FusedMlpPostlnDropoutFn``
+(K3M, with the hidden dropout as a mask drawn from the generator).
+Self-attention itself stays plain PyTorch, as it is plain XLA in the JAX
+package. Parameter names follow the JAX tree (``embeddings``,
+``encoder.layer_{i}.{attention.{query,key,value}, attention_output,
+attention_norm, intermediate, output, output_norm}``).
 """
 
 from __future__ import annotations
@@ -22,11 +26,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import LayerNorm, Linear, dropout
-from clover_tpu_torch.ops.mlp_block import fused_mlp_postln, mlp_postln_plain
+from clover_tpu_torch.models.layers import LayerNorm, Linear, dropout, dropout_mask
+from clover_tpu_torch.ops.mlp_block import (
+    FusedMlpPostlnDropoutFn,
+    fused_mlp_postln,
+    mlp_postln_plain,
+)
 
 # additive fill for padded keys (transformers==4.6.1, the reference's pin)
 ATTENTION_MASK_FILL = -10000.0
+# fused_mlp_train='auto' takes the fused FFN only for layers of at least this
+# many tokens (the fusion tower's batched pass; the JAX _FUSED_TRAIN_MIN_ROWS)
+FUSED_TRAIN_MIN_ROWS = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +54,20 @@ class BertConfig:
     layer_norm_eps: float = 1e-12
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
+    # the FFN half on training passes: '0' plain (the JAX default), '1' the
+    # fused K3M route in every layer, 'auto' only in layers of at least
+    # FUSED_TRAIN_MIN_ROWS tokens (the JAX CLOVER_BERT_MLP_TRAIN)
+    fused_mlp_train: str = "0"
+
+    def __post_init__(self):
+        if self.fused_mlp_train not in ("0", "1", "auto"):
+            raise ValueError(f"fused_mlp_train must be '0', '1' or 'auto', "
+                             f"got {self.fused_mlp_train!r}")
+
+    def fused_train(self, rows: int) -> bool:
+        """Does a training layer of ``rows`` tokens take the fused FFN route?"""
+        return self.fused_mlp_train == "1" or (self.fused_mlp_train == "auto"
+                                               and rows >= FUSED_TRAIN_MIN_ROWS)
 
 
 def extend_attention_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -53,8 +78,9 @@ def extend_attention_mask(mask: torch.Tensor, dtype=torch.float32) -> torch.Tens
 
 class BertEmbeddings(nn.Module):
     """Token + absolute-position + token-type embeddings, then LN; output in
-    ``dtype``. The retrieval text tower runs one segment from position 0, so
-    every token has type 0."""
+    ``dtype``. ``token_type_ids`` None gives every token type 0;
+    ``position_offset`` starts the positions there (HF
+    ``past_key_values_length``, the fusion tower's ``word_pos_start``)."""
 
     def __init__(self, cfg: BertConfig, kernels: bool = True):
         super().__init__()
@@ -65,10 +91,14 @@ class BertEmbeddings(nn.Module):
         self.drop = cfg.hidden_dropout
 
     def forward(self, input_ids: torch.Tensor, dtype: torch.dtype,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        pos = torch.arange(input_ids.shape[-1], device=input_ids.device)
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)[None]
-             + self.token_type_embeddings.weight[0])
+                generator: Optional[torch.Generator] = None,
+                token_type_ids: Optional[torch.Tensor] = None,
+                position_offset: int = 0) -> torch.Tensor:
+        pos = torch.arange(position_offset, position_offset + input_ids.shape[-1],
+                           device=input_ids.device)
+        types = (self.token_type_embeddings.weight[0] if token_type_ids is None
+                 else self.token_type_embeddings(token_type_ids))
+        x = self.word_embeddings(input_ids) + self.position_embeddings(pos)[None] + types
         return dropout(self.norm(x.to(dtype)), self.drop, generator, self.training)
 
 
@@ -100,11 +130,15 @@ class BertSelfAttention(nn.Module):
 
 class BertLayer(nn.Module):
     """Post-LN layer: attention + dropout + residual + LN, then the FFN half
-    LN(x + dropout(fc2(gelu(fc1(x))))), fused (K3) in eval."""
+    LN(x + dropout(fc2(gelu(fc1(x))))), fused (K3) in eval. In training the
+    route of the FFN half depends on ``cfg.fused_train(rows)`` alone, never
+    on ``kernels``, so the kernel path and the plain path draw the same
+    dropout from the same generator."""
 
     def __init__(self, cfg: BertConfig, kernels: bool = True):
         super().__init__()
         C = cfg.hidden_size
+        self.cfg = cfg
         self.eps = cfg.layer_norm_eps
         self.kernels = kernels
         self.attention = BertSelfAttention(cfg)
@@ -120,15 +154,24 @@ class BertLayer(nn.Module):
         attn = self.attention_output(self.attention(x, attn_bias, generator))
         attn = dropout(attn, self.drop, generator, self.training)
         x = self.attention_norm(x + attn)
-        if self.training:   # the JAX train path keeps the FFN in XLA (bert.py:196-205)
+        C = x.shape[-1]
+        x2 = x.reshape(-1, C)
+        args = (x2, self.output_norm.weight, self.output_norm.bias, self.intermediate.weight,
+                self.intermediate.bias, self.output.weight, self.output.bias)
+        if not self.training:
+            op = fused_mlp_postln if self.kernels else mlp_postln_plain
+            return op(*args, self.eps).view(x.shape)
+        if not self.cfg.fused_train(x2.shape[0]):
+            # the JAX train path's unfused FFN (bert.py:196-205)
             h = self.intermediate(x)
             h = self.output(F.gelu(h.float()).to(h.dtype))
             return self.output_norm(x + dropout(h, self.drop, generator, True))
-        op = fused_mlp_postln if self.kernels else mlp_postln_plain
-        C = x.shape[-1]
-        out = op(x.reshape(-1, C), self.output_norm.weight, self.output_norm.bias,
-                 self.intermediate.weight, self.intermediate.bias, self.output.weight,
-                 self.output.bias, self.eps)
+        # the fused route: the hidden dropout as a {0, 1/keep} fp32 mask
+        # (none at rate 0, the JAX fused_mlp_postln there)
+        mask = None
+        if self.drop > 0.0:
+            mask = dropout_mask(x2.shape, self.drop, generator, x.device)
+        out = FusedMlpPostlnDropoutFn.apply(*args, mask, self.eps, self.kernels)
         return out.view(x.shape)
 
 
@@ -162,3 +205,18 @@ class BertTextEncoder(nn.Module):
             attention_mask = torch.ones_like(input_ids)
         x = self.embeddings(input_ids, self.dtype, generator)
         return self.encoder(x, extend_attention_mask(attention_mask), generator)
+
+
+class BertPredictionTransform(nn.Module):
+    """dense -> erf GELU -> LayerNorm, the MLM head's transform (reference
+    mlm_itm_head.py:10-22); the norm is plain, as it is XLA in the JAX
+    package."""
+
+    def __init__(self, cfg: BertConfig):
+        super().__init__()
+        self.dense = Linear(cfg.hidden_size, cfg.hidden_size, init="normal")
+        self.norm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.dense(x)
+        return self.norm(F.gelu(x.float()).to(x.dtype))

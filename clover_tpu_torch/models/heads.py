@@ -1,14 +1,32 @@
-"""Retrieval projection head (port of ``clover_tpu/models/heads.py::NCEHeadForMM``,
-reference mmaction/models/heads/ssl_head.py:8-139), LayerNorm projector,
-CLS text aggregation."""
+"""Projection and readout heads (port of ``clover_tpu/models/heads.py``):
+
+- ``NCEHeadForMM``: the dual-tower contrastive head (reference
+  mmaction/models/heads/ssl_head.py:8-139), LayerNorm projector, CLS text
+  aggregation;
+- ``NCEHeadForVision`` (ssl_head.py:142-221) and ``NCEHeadForText``
+  (:224-297): the pretrain reconstruction heads;
+- ``MLMHead`` (mlm_itm_head.py:10-52): transform + vocabulary decoder.
+
+``NCEHeadForVision`` keeps the JAX package's documented fix
+(``clover_tpu/models/heads.py:12-17``): the reference takes the token mean
+unconditionally and crashes on the 2-D CLS feature the pretrain model feeds
+it; the mean is taken for 3-D inputs only, a 2-D input passes as it is.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import Linear, ProjectorNorm
+from clover_tpu_torch.models.bert import BertConfig, BertPredictionTransform
+from clover_tpu_torch.models.layers import Linear, ProjectorNorm, dropout
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x.float()).to(x.dtype)
 
 
 class NCEHeadForMM(nn.Module):
@@ -30,12 +48,59 @@ class NCEHeadForMM(nn.Module):
     def forward_vision(self, visual_feat: torch.Tensor) -> torch.Tensor:
         """(B, T, H, W, C) channels-last features -> (B, vts_embed_dim)."""
         img = visual_feat.mean(dim=(1, 2, 3))
-        img = self.img_norm1(self.img_fc1(img))
-        img = F.gelu(img.float()).to(img.dtype)
+        img = _gelu(self.img_norm1(self.img_fc1(img)))
         return self.img_norm2(self.img_fc2(img))
 
     def forward_text(self, text_feat: torch.Tensor) -> torch.Tensor:
         """(B, S, D) hidden states -> (B, vts_embed_dim), from the CLS token."""
-        text = self.text_fc1(text_feat[:, 0])
-        text = F.gelu(text.float()).to(text.dtype)
-        return self.text_fc2(text)
+        return self.text_fc2(_gelu(self.text_fc1(text_feat[:, 0])))
+
+
+class NCEHeadForVision(nn.Module):
+    """Projects the fused masked-video reconstruction feature: (B[, S], C)
+    -> (B, vts_embed_dim); fc1 to 2 * hidden_dim, LN, GELU, fc2, LN. Its
+    dropout rate is 0 in every config, so it has none."""
+
+    def __init__(self, in_channels: int = 768, hidden_dim: int = 768,
+                 vts_embed_dim: int = 768):
+        super().__init__()
+        self.fc1 = Linear(in_channels, 2 * hidden_dim, init="xavier")
+        self.norm1 = ProjectorNorm(2 * hidden_dim)
+        self.fc2 = Linear(2 * hidden_dim, vts_embed_dim, init="xavier")
+        self.norm2 = ProjectorNorm(vts_embed_dim)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        if feat.ndim == 3:
+            feat = feat.mean(dim=1)
+        feat = _gelu(self.norm1(self.fc1(feat)))
+        return self.norm2(self.fc2(feat))
+
+
+class NCEHeadForText(nn.Module):
+    """Projects the fused masked-word reconstruction feature: fc1, GELU,
+    dropout (0.1, from ``generator`` in training), fc2."""
+
+    def __init__(self, cross_in_channels: int = 768, vts_embed_dim: int = 768,
+                 dropout_ratio: float = 0.1):
+        super().__init__()
+        self.fc1 = Linear(cross_in_channels, cross_in_channels, init="xavier")
+        self.fc2 = Linear(cross_in_channels, vts_embed_dim, init="xavier")
+        self.drop = dropout_ratio
+
+    def forward(self, feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        feat = dropout(_gelu(self.fc1(feat)), self.drop, generator, self.training)
+        return self.fc2(feat)
+
+
+class MLMHead(nn.Module):
+    """BERT LM head: transform + vocabulary decoder (a separate weight,
+    initialised like the word embeddings)."""
+
+    def __init__(self, cfg: BertConfig = BertConfig()):
+        super().__init__()
+        self.transform = BertPredictionTransform(cfg)
+        self.decoder = Linear(cfg.hidden_size, cfg.vocab_size, init="normal")
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.transform(hidden_states))

@@ -74,6 +74,15 @@ def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
     return torch.rand(shape, generator=generator, device=device) < keep
 
 
+def dropout_mask(shape, rate: float, generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """The fp32 {0, 1/keep} mask of inverted dropout at ``rate``, one
+    Bernoulli(keep) draw per element (the fused FFN route takes it as a
+    tensor)."""
+    keep = 1.0 - rate
+    return _keep_mask(shape, keep, generator, device).float() / keep
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             training: bool) -> torch.Tensor:
     """Inverted dropout (flax ``nn.Dropout``): x / keep where a Bernoulli(keep)
@@ -140,6 +149,11 @@ def trunc_normal_(t: torch.Tensor, generator: torch.Generator, std: float = 0.02
                                                            generator=g))
 
 
+def normal_(t: torch.Tensor, generator: torch.Generator, std: float = 0.02) -> None:
+    """normal(std=.02), the BERT and embedding initializer."""
+    _draw(t, generator, lambda b, g: nn.init.normal_(b, std=std, generator=g))
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights with the JAX package's initializers, drawn on
@@ -155,13 +169,13 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 _draw(m.weight, generator,
                       lambda b, g: nn.init.uniform_(b, -bound, bound, generator=g))
             elif m.init == "normal":
-                _draw(m.weight, generator, lambda b, g: nn.init.normal_(b, std=0.02, generator=g))
+                normal_(m.weight, generator)
             else:
                 trunc_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.Embedding):
-            _draw(m.weight, generator, lambda b, g: nn.init.normal_(b, std=0.02, generator=g))
+            normal_(m.weight, generator)
         elif isinstance(m, LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -1,8 +1,11 @@
 """Video Swin Transformer (port of ``clover_tpu/models/swin3d.py``).
 
-What is ported is the path the retrieval eval and the retrieval finetune
-run: host space-to-depth input with the ImageNet normalization folded into
-the patch embed, window-resident stages (activations stay partitioned into
+What is ported is the path the retrieval eval, the retrieval finetune and
+the pretrain step run: host space-to-depth input with the ImageNet
+normalization folded into the patch embed (or the raw clip, put through
+space-to-depth on the device: ``embed_impl`` 's2d' / 'conv'), the SimMIM
+mask token and the embed / encode split of the pretrain step,
+window-resident stages (activations stay partitioned into
 windows for a whole stage; a shifted block permutes tokens in and out), the
 flat window attention (kernel K1, its backward K5), the fused
 LN2+MLP+residual half (kernel K2; in training its stash form), the
@@ -49,8 +52,12 @@ Tuple3 = Tuple[int, int, int]
 @dataclasses.dataclass(frozen=True)
 class SwinConfig:
     """The fields of ``clover_tpu.models.swin3d.SwinConfig`` the port reads.
-    The input is always host space-to-depth (``embed_impl='host_s2d'``) and
-    the stages are window-resident."""
+    The stages are window-resident. ``embed_impl``: 'host_s2d' (the port's
+    default) takes clips space-to-depth'd on the host; 's2d' and 'conv' (the
+    JAX default) take the raw (B, T, H, W, 3) clip and compute the same
+    patch-embed GEMM after a space-to-depth on the device (the JAX 'conv'
+    is a convolution with the same weights; its CPU tests hold the two
+    together)."""
 
     patch_size: Tuple3 = (2, 4, 4)
     in_chans: int = 3
@@ -69,10 +76,15 @@ class SwinConfig:
     # N >= 384 tokens (the 32-frame 8x7x7 window), 'on' or 'off' at every
     # N; the JAX package's CLOVER_FUSED_ATTN ('auto' / '1' / '0')
     fused_attn: str = "auto"
+    mask_token: bool = False    # the SimMIM mask token of the pretrain model
+    embed_impl: str = "host_s2d"
 
     def __post_init__(self):
         if self.fused_attn not in ("auto", "on", "off"):
             raise ValueError(f"fused_attn must be 'auto', 'on' or 'off', got {self.fused_attn!r}")
+        if self.embed_impl not in ("host_s2d", "s2d", "conv"):
+            raise ValueError(f"embed_impl must be 'host_s2d', 's2d' or 'conv', "
+                             f"got {self.embed_impl!r}")
 
     @property
     def num_features(self) -> int:
@@ -394,12 +406,28 @@ class PatchMerging(nn.Module):
         return self.reduction(self.norm(x))
 
 
+def space_to_depth(x: torch.Tensor, patch: Tuple3) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, T/pd, H/ph, W/pw, pd*ph*pw*C), features in (dt,
+    dy, dx, c) order, after zero padding to whole patches (the JAX patch
+    embed's pad)."""
+    B, D, H, W, C = x.shape
+    pd, ph, pw = patch
+    pad = ((-D) % pd, (-H) % ph, (-W) % pw)
+    if any(pad):
+        x = F.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        D, H, W = D + pad[0], H + pad[1], W + pad[2]
+    x = x.reshape(B, D // pd, pd, H // ph, ph, W // pw, pw, C).permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(B, D // pd, H // ph, W // pw, pd * ph * pw * C)
+
+
 class PatchEmbed3D(nn.Module):
-    """Host space-to-depth patch embed: (B, D', H', W', pd*ph*pw*C_in) ->
-    (B, D', H', W', E) with one GEMM. ``proj`` keeps the JAX Dense layout
-    (pd*ph*pw*C_in, E), features in (dt, dy, dx, c) order. With
-    ``fold_normalize`` the input is pixel-scale and the ImageNet (x-mean)/std
-    is folded into the weights in fp32 before the cast."""
+    """Space-to-depth patch embed: (B, D', H', W', pd*ph*pw*C_in) host s2d
+    clips, or with ``embed_impl`` 's2d' / 'conv' the raw (B, T, H, W, C_in)
+    clip put through :func:`space_to_depth` here, -> (B, D', H', W', E) with
+    one GEMM. ``proj`` keeps the JAX Dense layout (pd*ph*pw*C_in, E),
+    features in (dt, dy, dx, c) order. With ``fold_normalize`` the input is
+    pixel-scale and the ImageNet (x-mean)/std is folded into the weights in
+    fp32 before the cast."""
 
     def __init__(self, cfg: SwinConfig, kernels: bool = True):
         super().__init__()
@@ -428,7 +456,9 @@ class PatchEmbed3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         K = self.proj["weight"].shape[0]
-        if x.shape[-1] != K:
+        if self.cfg.embed_impl != "host_s2d":
+            x = space_to_depth(x, self.cfg.patch_size)
+        elif x.shape[-1] != K:
             raise ValueError(f"host_s2d expects s2d input with {K} features, got "
                              f"{x.shape[-1]}: use space_to_depth_host on the loader")
         k, b = self._folded()
@@ -437,13 +467,23 @@ class PatchEmbed3D(nn.Module):
 
 
 class SwinTransformer3D(nn.Module):
-    """Backbone: patch embed -> window-resident stages -> final LN.
+    """Backbone: patch embed -> (SimMIM mask mixing) -> window-resident
+    stages -> final LN.
 
-    forward(x, bias_cache=None, generator=None): x (B, D', H', W', pd*ph*pw*3)
-    host s2d clips in the compute dtype (pixel-scale with fold_normalize,
-    else normalized) -> (B, D', H'/8, W'/8, num_features) in the same dtype.
-    Block i's DropPath rate is ``linspace(0, drop_path_rate, blocks)[i]``;
-    ``generator`` feeds it in training."""
+    forward(x, bias_cache=None, generator=None, token_mask=None,
+    mode='full'): x (B, D', H', W', pd*ph*pw*3) host s2d clips, or with
+    ``embed_impl`` 's2d' / 'conv' (B, T, H, W, 3) clips, in the compute dtype
+    (pixel-scale with fold_normalize, else normalized) -> (B, D', H'/8, W'/8,
+    num_features) in the same dtype. Block i's DropPath rate is
+    ``linspace(0, drop_path_rate, blocks)[i]``; ``generator`` feeds it in
+    training.
+
+    ``token_mask`` (B, mh, mw) 0/1 (needs ``cfg.mask_token``) mixes the
+    embedded tokens with the mask token, x * (1 - w) + mask_token * w, the
+    mask repeated over time and over (H'/mh, W'/mw) blocks; the forward then
+    returns (features, w). ``mode`` splits the graph after the patch embed,
+    as the JAX package's: 'embed' returns the (B, D', H', W', E) tokens,
+    'encode' takes such tokens and runs the rest."""
 
     def __init__(self, cfg: SwinConfig, kernels: bool = True):
         super().__init__()
@@ -462,11 +502,32 @@ class SwinTransformer3D(nn.Module):
             if i_stage < len(cfg.depths) - 1:
                 self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
         self.norm = LayerNorm(cfg.num_features, kernel=kernels)
+        if cfg.mask_token:
+            self.mask_token = nn.Parameter(torch.zeros(1, 1, 1, 1, cfg.embed_dim))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.cfg.mask_token:
+            trunc_normal_(self.mask_token, generator)
 
     def forward(self, x: torch.Tensor, bias_cache: Optional[Dict[str, torch.Tensor]] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                token_mask: Optional[torch.Tensor] = None, mode: str = "full"):
         cfg = self.cfg
-        x = self.patch_embed(x)
+        if mode not in ("full", "embed", "encode"):
+            raise ValueError(f"mode must be 'full', 'embed' or 'encode', got {mode!r}")
+        if mode != "encode":
+            x = self.patch_embed(x)
+            if mode == "embed":
+                return x
+        w = None
+        if token_mask is not None:
+            if not cfg.mask_token:
+                raise ValueError("token_mask given but config.mask_token=False")
+            B, D, H, W, _ = x.shape
+            mh, mw = token_mask.shape[-2:]
+            w = token_mask.repeat_interleave(H // mh, dim=-2).repeat_interleave(W // mw, dim=-1)
+            w = w[:, None, :, :, None].expand(B, D, H, W, 1).to(x.dtype)
+            x = x * (1.0 - w) + self.mask_token.to(x.dtype) * w
         for i_stage, depth in enumerate(cfg.depths):
             B, D, H, W, C = x.shape
             dims = (D, H, W)
@@ -484,4 +545,5 @@ class SwinTransformer3D(nn.Module):
             x = window_reverse(x.reshape(-1, N, C), window, B, D, H, W)
             if i_stage < len(cfg.depths) - 1:
                 x = getattr(self, f"stage_{i_stage}_downsample")(x)
-        return self.norm(x)
+        x = self.norm(x)
+        return x if w is None else (x, w)

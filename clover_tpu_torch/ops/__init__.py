@@ -11,11 +11,15 @@ from clover_tpu_torch.ops.attn_block import (  # noqa: F401
 from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain  # noqa: F401
 from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
     FusedLnMlpResidualFn,
+    FusedMlpPostlnDropoutFn,
     fused_ln_mlp_residual,
     fused_ln_mlp_residual_stash,
     fused_mlp_postln,
+    fused_mlp_postln_dropout,
     ln_mlp_residual_bwd_stash,
     ln_mlp_residual_plain,
+    mlp_postln_mask_bwd,
+    mlp_postln_mask_plain,
     mlp_postln_plain,
 )
 from clover_tpu_torch.ops.window_attention import (  # noqa: F401
@@ -27,7 +31,8 @@ from clover_tpu_torch.ops.window_attention import (  # noqa: F401
 )
 
 KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm,
-           flat2_window_attention_bwd, fused_ln_mlp_residual_stash, fused_window_attn_block)
+           flat2_window_attention_bwd, fused_ln_mlp_residual_stash, fused_window_attn_block,
+           fused_mlp_postln_dropout)
 
 
 def reset_launch_counts() -> None:

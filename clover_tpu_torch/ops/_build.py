@@ -38,7 +38,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "clover_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "clover_ln_mlp_residual": (_P,) * 12 + (_I, _I, _I, _F, _I, _P),
-    "clover_mlp_postln": (_P,) * 9 + (_I, _I, _I, _I, _F, _P),
+    "clover_mlp_postln": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
     "clover_window_attention_bwd": (_P,) * 8 + (_I,) * 6 + (_F, _P),
     "clover_attn_block": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),

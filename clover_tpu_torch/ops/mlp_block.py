@@ -12,6 +12,12 @@
   ``FusedLnMlpResidualFn`` ties the two into autograd.
 - ``fused_mlp_postln``: ``LN(x + gelu_erf(x W1^T + b1) W2^T + b2)``, the
   BERT post-LN half (port of ``::fused_mlp_postln``).
+- ``fused_mlp_postln_dropout``: the same half in training, with its hidden
+  dropout as a precomputed {0, 1/keep} fp32 mask m:
+  ``LN(x + m * (fc2(gelu_erf(fc1(x))) + b2))`` (port of
+  ``::fused_mlp_postln_dropout``); ``mlp_postln_mask_bwd`` is its backward
+  (the JAX ``_xla_backward_postln_mask``, plain PyTorch GEMMs), and
+  ``FusedMlpPostlnDropoutFn`` ties the two into autograd.
 
 The wrappers launch ``csrc/mlp_block.cu`` for a CUDA tensor and run their
 plain version for a CPU tensor. Weights are torch ``Linear`` layouts: ``w1``
@@ -197,21 +203,115 @@ class FusedLnMlpResidualFn(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+def _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps):
+    """K3 (mask None) or K3M: out = LN(x + [mask *] (fc2(gelu(fc1 x)) + b2))."""
+    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (768,),
+                             _POSTLN_SPLITS * _HIDDEN_CHUNK)
+    if mask is not None:
+        _build.require(mask, "mask", torch.float32, x.device, x.shape)
+    # the splits' fp32 partial sums, added up by the kernel's second pass
+    partial = torch.empty((_POSTLN_SPLITS,) + tuple(x.shape), dtype=torch.float32,
+                          device=x.device)
+    _build.launch("clover_mlp_postln", *bufs, mask, partial, *x.shape, w1.shape[0],
+                  _POSTLN_SPLITS, float(eps), _build.stream(x.device))
+    return out
+
+
 def fused_mlp_postln(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
     """``LN(x + fc2(gelu_erf(fc1(x))))`` over 2-D x (rows, C)."""
     if not x.is_cuda:
         return mlp_postln_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (768,),
-                             _POSTLN_SPLITS * _HIDDEN_CHUNK)
-    # the splits' fp32 partial sums, added up by the kernel's second pass
-    partial = torch.empty((_POSTLN_SPLITS,) + tuple(x.shape), dtype=torch.float32,
-                          device=x.device)
-    _build.launch("clover_mlp_postln", *bufs, partial, *x.shape, w1.shape[0],
-                  _POSTLN_SPLITS, float(eps), _build.stream(x.device))
+    out = _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, None, eps)
     fused_mlp_postln.launches += 1
     return out
+
+
+def mlp_postln_mask_plain(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps: float = 1e-12):
+    """Plain PyTorch version of ``fused_mlp_postln_dropout`` (the JAX
+    ``_xla_reference_postln_mask``): the hidden and y = fc2(h) + b2 in fp32
+    (``preferred_element_type=f32``), h rounded once to x's dtype for fc2,
+    then LN(x + y * mask) in fp32. ``mask`` None is a mask of ones."""
+    dt = x.dtype
+    h = F.gelu(_mm_f32(x, w1.to(dt).t()) + b1).to(dt)
+    y = _mm_f32(h, w2.to(dt).t()) + b2
+    if mask is not None:
+        y = y * mask
+    return layer_norm_plain(x.float() + y, ln_w, ln_b, eps).to(dt)
+
+
+def fused_mlp_postln_dropout(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps: float = 1e-12):
+    """``LN(x + mask * (fc2(gelu_erf(fc1(x))) + b2))`` over 2-D x (rows, C),
+    ``mask`` the (rows, C) fp32 {0, 1/keep} hidden-dropout mask (None: no
+    dropout). K3M on the card."""
+    if not x.is_cuda:
+        return mlp_postln_mask_plain(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps)
+    out = _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps)
+    fused_mlp_postln_dropout.launches += 1
+    return out
+
+
+def mlp_postln_mask_bwd(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps: float, g):
+    """Backward of ``fused_mlp_postln_dropout`` by recompute: port of the JAX
+    ``_xla_backward_postln_mask`` with its default bf16 crossings of the
+    pre-GELU hidden zpre and of dh (``_BWD_HBM_BF16``). Every product takes
+    compute-dtype operands with an fp32 result; dx comes back in x's dtype,
+    the parameter gradients in fp32. The mask takes no gradient.
+    -> (dx, dln_w, dln_b, dw1, db1, dw2, db2)."""
+    dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    w1_b, w2_b = w1.to(dt), w2.to(dt)
+    zpre = (_mm_f32(x, w1_b.t()) + b1).to(dt).to(acc)
+    h_b = F.gelu(zpre).to(dt)
+    y = _mm_f32(h_b, w2_b.t()) + b2
+    if mask is not None:
+        y = y * mask
+    z = x.to(acc) + y
+    mean = z.mean(-1, keepdim=True)
+    zc = z - mean
+    inv = torch.rsqrt((zc * zc).mean(-1, keepdim=True) + eps)
+    zn = zc * inv
+    g32 = g.to(acc)
+    dln_w = (g32 * zn).sum(0)
+    dln_b = g32.sum(0)
+    dzn = g32 * ln_w
+    dz = inv * (dzn - dzn.mean(-1, keepdim=True) - zn * (dzn * zn).mean(-1, keepdim=True))
+    dy = dz * mask if mask is not None else dz
+    dy_b = dy.to(dt)
+    dh = _mm_f32(dy_b, w2_b).to(dt).to(acc)
+    dzpre_b = torch.ops.aten.gelu_backward(dh, zpre).to(dt)
+    dx = (dz + _mm_f32(dzpre_b, w1_b)).to(dt)
+    dw1 = _mm_f32(dzpre_b.t(), x)
+    db1 = dzpre_b.to(acc).sum(0)
+    dw2 = _mm_f32(dy_b.t(), h_b)
+    db2 = dy.sum(0)
+    return (dx, dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype), dw1.to(w1.dtype),
+            db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+
+
+class FusedMlpPostlnDropoutFn(torch.autograd.Function):
+    """The BERT FFN half in training on the fused route: forward K3M
+    (``kernels=True``; its plain version for CPU tensors) or the plain one
+    (``kernels=False``), backward ``mlp_postln_mask_bwd``.
+
+    ``FusedMlpPostlnDropoutFn.apply(x, ln_w, ln_b, w1, b1, w2, b2, mask,
+    eps, kernels)``"""
+
+    @staticmethod
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, mask, eps, kernels):
+        op = fused_mlp_postln_dropout if kernels else mlp_postln_mask_plain
+        out = op(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps)
+        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2, mask)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        *args, mask = ctx.saved_tensors
+        grads = mlp_postln_mask_bwd(*args, mask, ctx.eps, g.contiguous())
+        return (*grads, None, None, None)
 
 
 fused_ln_mlp_residual.launches = 0
 fused_ln_mlp_residual_stash.launches = 0
 fused_mlp_postln.launches = 0
+fused_mlp_postln_dropout.launches = 0
