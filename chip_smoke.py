@@ -52,6 +52,19 @@ Phases, in order; any failure raises and exits non-zero:
    plain versions from one seed: launches per step, finite gradients, every
    loss key, step 1 compared, clips/s and peak memory (and, with
    --profile, 3 more steps of each path traced);
+8d. the 32-frame pretrain step under the TPU's remat recipe (bench.py's
+   BENCH_FRAMES=32 BENCH_REMAT=0,1: B=8 clips of 32 x 224^2, the blocks of
+   Swin stages 0-1 rematerialised, the MLP stash off, every Swin MLP
+   backward through K7, the one-pass recompute backward): K7 at the four
+   stage shapes against the plain recompute backward (dx within K2's
+   limits; each fp32 output's error against the plain version run in fp32
+   at most BWD_ERR_RATIO x the bf16 plain version's; two launches bitwise
+   equal), K2's training form without the stash, K6, K1, K5 and K3M (13024
+   fusion rows) at the path's shapes; then 5 steps with the kernels and
+   with the plain versions as in 8c (and, with --profile, 3 more traced);
+8e. the 8-frame pretrain step through the pair K8a + K8b (the erf GELU,
+   every stage rematerialised, the stash off): K8a and K8b checked as K7,
+   then 3 steps on each path as in 8c;
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -91,7 +104,7 @@ TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 
        # same values rounded to bf16 (checked), and rstd's below an eps of
        # 1e-6 for 1e-5 at unit variance (~4.5e-6)
        "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6),
-       "K3M": (2e-2, 2e-2)}
+       "K3M": (2e-2, 2e-2), "K2T": (2e-2, 2e-2), "K7": (2e-2, 2e-2), "K8a": (2e-2, 2e-2)}
 # the 32-frame retrieval eval (bench.py's BENCH_FRAMES=32, B=32): every
 # Swin block at N=392 through the fused half-block K6
 T32, N32_BATCHES = 32, 2
@@ -107,10 +120,11 @@ TRAIN_STEPS = 5
 # kernel launches per train step: at 12 frames the attention half is K1
 # forward, K5 backward; at 32 (N=392) K6 forward, its backward's recompute
 # K1 and K5; K2's stash form in every block; LayerNorm and the BERT FFN plain
+_NO_RECOMPUTE = {"K2T": 0, "K7": 0, "K8a": 0, "K8b": 0}
 TRAIN_LAUNCHES = {TT: {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0,
-                       "K3M": 0},
+                       "K3M": 0, **_NO_RECOMPUTE},
                   T32: {"K6": 24, "K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0,
-                        "K3M": 0}}
+                        "K3M": 0, **_NO_RECOMPUTE}}
 OPTIM = dict(base_lr=1.2e-5, total_steps=1000, warmup_steps=10)
 GRAD_CLIP = 15.0
 # kernel path vs plain path at train step 1 (same weights, batch and dropout
@@ -128,7 +142,28 @@ PB, PT = 8, 8
 PRETRAIN_ROWS = 2 * PB * (PT // 2 * 49 + L)
 PRETRAIN_OPTIM = dict(base_lr=5e-5, total_steps=1000, warmup_steps=10)
 PRETRAIN_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24, "K3M": 3, "K2": 0, "K3": 0, "K4": 0,
-                     "K6": 0}
+                     "K6": 0, **_NO_RECOMPUTE}
+# the TPU's 32-frame pretrain recipe (bench.py's BENCH_FRAMES=32 BENCH_REMAT=0,1,
+# tools/hbm_audit.py's 32f-B8-remat01): B=8 clips of 32 x 224^2, the blocks of
+# stages 0-1 rematerialised, the MLP stash off, every Swin MLP backward through
+# K7 (mlp_bwd='onepass'); N=392 everywhere, so K6 runs each block's attention
+# half, again in the 4 recomputed blocks; the fusion tower at 16 latent frames
+# takes 16 x (16*49 + 30) = 13024 rows through K3M
+PT32 = 32
+PRETRAIN32_LAUNCHES = {"K6": 28, "K1": 24, "K5": 24, "K2T": 28, "K2S": 0, "K7": 24, "K8a": 0,
+                       "K8b": 0, "K3M": 3, "K2": 0, "K3": 0, "K4": 0}
+# the pair's path: the 8-frame pretrain step with the erf GELU, every Swin
+# stage rematerialised, the stash off, mlp_bwd='pair' (K8a then K8b); K1 runs
+# in each block's forward and again in its recompute
+PRETRAIN_ERF_STEPS = 3
+PRETRAIN_ERF_LAUNCHES = {"K6": 0, "K1": 48, "K5": 24, "K2T": 48, "K2S": 0, "K7": 0, "K8a": 24,
+                         "K8b": 24, "K3M": 3, "K2": 0, "K3": 0, "K4": 0}
+# the recompute backward's fp32 outputs (dln_w, dln_b, dW1, db1, dW2, db2,
+# drs) against the plain version run in fp32 on the same inputs: the kernel
+# keeps z and dh in fp32 where the plain version rounds them to bf16, so each
+# output's max error must be at most 1.5x the bf16 plain version's plus 1e-6
+# of max|reference|, and its cosine with the plain version at least 0.9999
+BWD_ERR_RATIO, BWD_ERR_FLOOR, BWD_COS_MIN = 1.5, 1e-6, 0.9999
 PRETRAIN_LOSSES = ("mlm_loss", "nce_loss", "rank_t_tm_loss", "v_nce_loss", "rank_v_vm_loss")
 
 
@@ -335,22 +370,27 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
 
 
 def recorder(results, per):
-    """record(key, name, label, out, ref, t_k, t_p, count, part, work, lib):
-    check one kernel output against its plain version, print it, and add
+    """record(key, name, label, out, ref, t_k, t_p, count, part, work, lib, err):
+    check one kernel output against its plain version (``err`` given: an
+    error the caller has checked against its own limits), print it, and add
     the times (count calls per ``per``) to results[key]: kernel and plain
     ms, the bound (``work``: (operations ms, bytes ms) of one call) and the
     library call's ms (``lib``; None where no PyTorch call computes the
     function)."""
     import torch
 
-    def record(key, name, label, out, ref, t_k, t_p, count, part=None, work=None, lib=None):
-        err = (out.float() - ref.float()).abs().max().item()
+    def record(key, name, label, out, ref, t_k, t_p, count, part=None, work=None, lib=None,
+               err=None):
+        checked = err is not None   # the caller held the output to its own limits
+        if not checked:
+            err = (out.float() - ref.float()).abs().max().item()
         scale = ref.float().abs().max().item()
-        atol, rtol = TOL[f"{key} {part}" if f"{key} {part}" in TOL else key]
+        atol, rtol = TOL[f"{key} {part}" if f"{key} {part}" in TOL else key] if not checked else (
+            float("inf"), 0.0)
         tol = atol + rtol * scale
         ok = err <= tol and bool(torch.isfinite(out).all())
         control = ""
-        if ref.dtype == torch.float32:
+        if ref.dtype == torch.float32 and not checked:
             # the same values rounded to bf16: a limit above this would pass
             # an output stored or summed in bf16
             ctrl = (ref.bfloat16().float() - ref).abs().max().item()
@@ -396,18 +436,21 @@ def attn_block_weights(randn, C):
 
 
 def train_path_shapes(cfg, frames=TT):
-    """Per-step kernel calls of the finetune step at ``frames`` frames:
-    {kernel: [(args, count)]}. K1 and K5 run once per Swin block at the same
-    shapes (below N=384 K1 in the forward; at N >= 384 in the recompute of
-    K6's backward, K6 in the forward), K2's stash form once per block;
-    LayerNorm and the BERT FFN stay plain in training."""
+    """Per-step kernel calls of a train step of TB clips at ``frames`` frames:
+    {kernel: [(args, count)]} (K1: (args, count, K5's count)). K1 and K5 run
+    once per Swin block at the same shapes (below N=384 K1 in the forward;
+    at N >= 384 in the recompute of K6's backward, K6 in the forward). The
+    MLP half runs K2's stash form once per block, or with the stash off K2's
+    training form and the recompute backward (K7, or K8a + K8b: key 'K8').
+    A block of a rematerialised stage runs its forward twice (K1 below
+    N=384, K6, K2). LayerNorm and the BERT FFN stay plain in training."""
     from clover_tpu_torch.models.swin3d import (_shift_region_ids, effective_window,
                                                 fused_attn_enabled)
 
     sw = cfg.swin
     dims = (frames // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
     shift = tuple(s // 2 for s in sw.window_size)
-    calls = {"K1": [], "K2S": [], "K6": []}
+    calls = {"K1": [], "K2S": [], "K6": [], "K2T": [], "K7": [], "K8": []}
     for i, depth in enumerate(sw.depths):
         C, nH = sw.embed_dim * 2 ** i, sw.num_heads[i]
         rows = TB * int(np.prod(dims))
@@ -415,19 +458,26 @@ def train_path_shapes(cfg, frames=TT):
         N = int(np.prod(window))
         ids = _shift_region_ids(dims, window, sh)
         n_shifted = depth // 2 if ids is not None else 0
-        attn = ["K1", "K6"] if fused_attn_enabled(sw.fused_attn, N) else ["K1"]
-        for k in attn:
-            calls[k].append(((rows // N, N, nH, None), depth - n_shifted))
-            if n_shifted:
-                calls[k].append(((rows // N, N, nH, ids), n_shifted))
-        calls["K2S"].append(((rows, C), depth))
+        fwd = 2 if sw.remat_stage(i) else 1
+        fused = fused_attn_enabled(sw.fused_attn, N)
+        for mask, n in ((None, depth - n_shifted), (ids, n_shifted)):
+            if n:
+                calls["K1"].append(((rows // N, N, nH, mask), n if fused else fwd * n, n))
+                if fused:
+                    calls["K6"].append(((rows // N, N, nH, mask), fwd * n))
+        if sw.mlp_stash:
+            calls["K2S"].append(((rows, C), depth))
+        else:
+            calls["K2T"].append(((rows, C), fwd * depth))
+            calls["K7" if sw.mlp_bwd == "onepass" else "K8"].append(((rows, C), depth))
         dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
     return calls
 
 
 def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
-    """K1, K5, K2's stash form and, at 32 frames, K6 with a row scale
-    against their plain versions at the finetune step's shapes; times per
+    """K1, K5, K2's stash form (or, with the stash off, its training form and
+    K7 or K8a + K8b) and, at 32 frames, K6 with a row scale against their
+    plain versions at the shapes of a train step of TB clips; times per
     train step."""
     import torch
 
@@ -444,10 +494,10 @@ def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
     if frames == TT:
         # the region mask at nH=32 too (stage 3 has no shifted block at 12 frames)
         ids_extra = _shift_region_ids((6, 14, 14), (6, 7, 7), (0, 3, 3))[:1]
-        calls["K1"].append(((TB, 294, 32, ids_extra), 0))
+        calls["K1"].append(((TB, 294, 32, ids_extra), 0, 0))
     scale = 32 ** -0.5
     library = {}   # SDPA forward and backward per unshifted shape
-    for (Bn, N, nH, ids), count in calls["K1"]:
+    for (Bn, N, nH, ids), count, count5 in calls["K1"]:
         C = nH * 32
         qkv, grad = randn(Bn * N, 3 * C), randn(Bn * N, C)
         bias = randn(nH, N, N, dtype=torch.float32)
@@ -467,7 +517,7 @@ def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
             qkv, bias, rid, grad, scale, nH, N)
         (dqkv, dbias), (rdqkv, rdbias) = kb(), pb()
         t_k, t_p = cuda_ms(kb, 5), cuda_ms(pb, 2)
-        record("K5", "flat2_window_attention_bwd", label, dqkv, rdqkv, t_k, t_p, count, "dqkv",
+        record("K5", "flat2_window_attention_bwd", label, dqkv, rdqkv, t_k, t_p, count5, "dqkv",
                work=attention_work(Bn, N, nH, ids, products=5, row_widths=7, dbias=True),
                lib=lib_b)
         record("K5", "flat2_window_attention_bwd", label, dbias, rdbias, 0.0, 0.0, 0, "dbias")
@@ -514,6 +564,92 @@ def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
                    work=work)
             for part, a, b in zip(("z", "mean", "rstd"), stash, rstash):
                 record("K2S", "fused_ln_mlp_residual_stash", label, a, b, 0.0, 0.0, 0, part)
+
+    for (rows, C), count in calls["K2T"]:
+        x, w = randn(rows, C), mlp_weights(randn, C, 4 * C)
+        rs = sample_scale(g, dev, rows)
+        k = lambda: ops.fused_ln_mlp_residual_train(x, *w, 1e-5, cfg.swin.gelu, rs)   # noqa: E731
+        p = lambda: ops.ln_mlp_residual_plain(x, *w, 1e-5, cfg.swin.gelu, rs)   # noqa: E731
+        record("K2T", "fused_ln_mlp_residual_train", f"rows={rows} C={C} row_scale=yes", k(), p(),
+               cuda_ms(k, 5), cuda_ms(p, 5), count, work=mlp_work(rows, C, 4 * C, 4 * rows))
+        del x
+
+    for key in ("K7", "K8"):
+        for (rows, C), count in calls[key]:
+            # block 0 (stage 0) has DropPath rate 0: no row scale there
+            scales = (None, sample_scale(g, dev, rows)) if C == cfg.swin.embed_dim else (
+                sample_scale(g, dev, rows),)
+            for rs in scales:
+                n = (1 if rs is None else count - 1) if len(scales) == 2 else count
+                mlp_bwd_check(record, key, rows, C, cfg.swin.gelu, rs, n, randn)
+
+
+def sample_scale(g, dev, rows):
+    """DropPath's per-sample factor keep / 0.9 (a seeded keep-0.9 draw per
+    clip), repeated over each of the TB clips' rows."""
+    import torch
+
+    return ((torch.rand(TB, generator=g, device=dev) < 0.9).float() / 0.9).repeat_interleave(
+        rows // TB)
+
+
+def mlp_bwd_check(record, key, rows, C, gelu, rs, count, randn):
+    """K7 (key 'K7') or K8a + K8b ('K8') against the plain recompute backward
+    at one shape: dx within K2's limits of the plain version; each fp32
+    output against the plain version run in fp32 (BWD_ERR_*); two launches
+    bitwise equal; kernel and plain times, the bound (the kernel's products:
+    K7 z, u, dh's W2 product folded into u, dy, dW1, dW2 = 10 rows C H
+    flops; K8a z, u, dy = 6; K8b z, u, dW1, dW2 = 8)."""
+    import torch
+
+    from clover_tpu_torch import ops
+
+    H = 4 * C
+    x, grad = randn(rows, C), randn(rows, C)
+    # bf16-exact weights, so the fp32 reference sees the kernel's operands
+    w = [t.bfloat16().float() for t in mlp_weights(randn, C, H)]
+    args = (x, *w, rs, 1e-5, gelu, grad)
+    ref = ops.ln_mlp_residual_bwd_recompute(x.float(), *w, rs, 1e-5, gelu, grad.float())
+    plain = ops.ln_mlp_residual_bwd_recompute(*args)
+    if key == "K7":
+        parts = {"K7": (ops.ln_mlp_residual_bwd_onepass, 10, "ln_mlp_residual_bwd_onepass")}
+        got = parts["K7"][0](*args)
+    else:
+        parts = {"K8a": (ops.ln_mlp_bwd_dx, 6, "ln_mlp_bwd_dx"),
+                 "K8b": (ops.ln_mlp_bwd_dw, 8, "ln_mlp_bwd_dw")}
+        got = ops.ln_mlp_residual_bwd_pair(*args)
+    again = ops.ln_mlp_residual_bwd_pair(*args) if key == "K8" else parts["K7"][0](*args)
+    torch.cuda.synchronize()
+    label = f"rows={rows} C={C} gelu={gelu} row_scale={'yes' if rs is not None else 'no'}"
+    check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
+          f"{key} {label}: two launches on the same inputs differ")
+    names = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2", "drs")
+    for name, k, p, r in list(zip(names, got, plain, ref))[1:]:
+        if r is None:
+            check(k is None, f"{key} {label}: drs without a row scale")
+            continue
+        r = r.float()
+        err_k, err_p = (k - r).abs().max().item(), (p - r).abs().max().item()
+        limit = BWD_ERR_RATIO * err_p + BWD_ERR_FLOOR * r.abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(k.flatten(), p.flatten(), 0).item()
+        print(f"{key} {label} {name}: max_abs_err vs fp32 kernel={err_k:.3e} plain={err_p:.3e} "
+              f"(limit {limit:.3e}) cosine kernel/plain={cos:.7f}", flush=True)
+        check(err_k <= limit and cos >= BWD_COS_MIN and bool(torch.isfinite(k).all()),
+              f"{key} {label} {name}: kernel off its reference")
+    t_p = cuda_ms(lambda: ops.ln_mlp_residual_bwd_recompute(*args), 3)
+    # bytes: x and g in, dx out (bf16), the fp32 weights in and the fp32
+    # parameter gradients out, the row scale in and drs out
+    rsb = 0 if rs is None else 8 * rows
+    nbytes = {"K7": 6 * rows * C + 16 * C * H + rsb, "K8a": 6 * rows * C + 8 * C * H + rsb,
+              "K8b": 4 * rows * C + 16 * C * H + rsb // 2}
+    for part, (fn, products, name) in parts.items():
+        work = bound_ms(flops=products * rows * C * H, nbytes=nbytes[part])
+        t_k = cuda_ms(lambda: fn(*args), 3)
+        if part == "K8b":   # dW1, checked above; its error against the fp32 reference
+            record(part, name, label, got[3], ref[3], t_k, t_p, count, "dw1", work=work,
+                   err=(got[3] - ref[3]).abs().max().item())
+        else:
+            record(part, name, label, got[0], plain[0], t_k, t_p, count, "dx", work=work)
 
 
 def mlp_weights(randn, C, H):
@@ -593,6 +729,8 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
     ("K1 window attention", ("window_attention_kernel",)),
     ("K5 window-attention backward", ("window_attention_bwd_kernel", "dbias_finish")),
     ("K3 / K3M post-LN FFN", ("mlp_kernel<32, 768, false>", "postln_finish")),
+    ("K7 / K8a MLP backward, row kernel", ("bwd_rows_kernel", "sum_slots")),
+    ("K8b MLP backward, dW kernel", ("bwd_dw_kernel",)),
     ("K2 / K2 stash MLP halves", ("mlp_kernel",)),
     ("K4 LayerNorm", ("layer_norm_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
@@ -672,7 +810,7 @@ def profile_eval_path(model, cfg, batches, dev, wall_ms: float, label: str) -> N
     profile_runs([lambda a=a: step(*a, cache) for a in on_dev], wall_ms, label, "forward")
 
 
-TRAIN_WRAPPERS = ("K1", "K5", "K2S", "K2", "K3", "K4", "K6", "K3M")
+TRAIN_WRAPPERS = ("K1", "K5", "K2S", "K2", "K3", "K4", "K6", "K3M", "K2T", "K7", "K8a", "K8b")
 
 
 def train_wrappers():
@@ -681,7 +819,9 @@ def train_wrappers():
     return dict(zip(TRAIN_WRAPPERS, (
         ops.flat2_window_attention, ops.flat2_window_attention_bwd,
         ops.fused_ln_mlp_residual_stash, ops.fused_ln_mlp_residual, ops.fused_mlp_postln,
-        ops.fused_layer_norm, ops.fused_window_attn_block, ops.fused_mlp_postln_dropout)))
+        ops.fused_layer_norm, ops.fused_window_attn_block, ops.fused_mlp_postln_dropout,
+        ops.fused_ln_mlp_residual_train, ops.ln_mlp_residual_bwd_onepass, ops.ln_mlp_bwd_dx,
+        ops.ln_mlp_bwd_dw)))
 
 
 def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
@@ -697,22 +837,22 @@ def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
 def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: str, per_step,
                         shape: str, clips: int, make):
     """The train step built by ``make`` on the kernel model and on the plain
-    one, TRAIN_STEPS steps each on ``batches``: launches per step, finite
-    metrics and gradients, step 1's loss, grad_norm and gradient cosines,
-    clips/s over steps 3-5 and peak memory. -> the kernel path's counts."""
+    one, one step per batch on each: launches per step, finite metrics and
+    gradients, step 1's loss, grad_norm and gradient cosines, clips/s from
+    step 3 on and peak memory. -> the kernel path's counts."""
     import torch
 
     from clover_tpu_torch import ops
 
     wrappers = train_wrappers()
+    steps = len(batches)
     ops.reset_launch_counts()
     k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev, make)
     counts = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"{tag} launches over {TRAIN_STEPS} steps: {counts} (expected per step: {per_step})",
+    print(f"{tag} launches over {steps} steps: {counts} (expected per step: {per_step})",
           flush=True)
     for k, n in per_step.items():
-        check(counts[k] == n * TRAIN_STEPS,
-              f"{tag} {k}: {counts[k]} launches, expected {n * TRAIN_STEPS}")
+        check(counts[k] == n * steps, f"{tag} {k}: {counts[k]} launches, expected {n * steps}")
 
     ops.reset_launch_counts()
     p_metrics, p_grads, p_sec, p_peak = drive_train_path(plain, batches, dev, make)
@@ -740,7 +880,7 @@ def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: st
     check(gnorm_rel <= TRAIN_GNORM_RTOL, f"{tag} grad_norm differs: {gnorm_rel:.3e}")
     check(worst[0][1] >= TRAIN_COS_MIN, f"{tag} gradients differ: {worst}")
     steady = lambda sec: clips * (len(sec) - 2) / sum(sec[2:])   # noqa: E731  (2 warm-up steps)
-    print(f"{tag} clips/s ({shape}, steps 3-{TRAIN_STEPS}): kernels "
+    print(f"{tag} clips/s ({shape}, steps 3-{steps}): kernels "
           f"{steady(k_sec):.2f} plain {steady(p_sec):.2f}; step seconds kernels "
           f"{[round(t, 4) for t in k_sec]} plain {[round(t, 4) for t in p_sec]}; peak memory "
           f"kernels {k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}",
@@ -753,20 +893,39 @@ def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: st
     return counts
 
 
-def pretrain_config():
-    """bench_train's configuration (bench.py:402-416) with the fused FFN
-    route on ('auto', the JAX CLOVER_BERT_MLP_TRAIN): Swin-B with the mask
-    token and the raw-clip embed, BERT-base, the 3-layer fusion tower."""
+def pretrain_config(frames=PT, **swin):
+    """bench_train's configuration (bench.py:402-416) at ``frames`` frames
+    with the fused FFN route on ('auto', the JAX CLOVER_BERT_MLP_TRAIN):
+    Swin-B with the mask token and the raw-clip embed (and the ``swin``
+    fields given: remat, the MLP route), BERT-base, the 3-layer fusion tower
+    at frames / 2 latent frames."""
     from clover_tpu_torch.models import BertConfig, FusionConfig, PretrainConfig, SwinConfig
 
     return PretrainConfig(
-        swin=SwinConfig.base(mask_token=True, embed_impl="conv"),
+        swin=SwinConfig.base(mask_token=True, embed_impl="conv", **swin),
         text_bert=BertConfig(fused_mlp_train="auto"),
         fusion=FusionConfig(bert=BertConfig(num_hidden_layers=3, fused_mlp_train="auto"),
-                            img_in_size=1024, num_frames=PT // 2, spatial_tokens=49))
+                            img_in_size=1024, num_frames=frames // 2, spatial_tokens=49))
 
 
-def pretrain_kernel_phase(cfg, dev, results, seed=SEED + 7):
+def pretrain32_config():
+    """The TPU's 32-frame remat recipe: stages 0-1 rematerialised, the MLP
+    stash off, the MLP backward through K7."""
+    return pretrain_config(PT32, use_checkpoint=(0, 1), mlp_stash=False, mlp_bwd="onepass")
+
+
+def pretrain_erf_config():
+    """The pair's path: 8 frames, the erf GELU, every stage rematerialised,
+    the stash off, the MLP backward through K8a + K8b."""
+    return pretrain_config(PT, gelu="erf", use_checkpoint=True, mlp_stash=False, mlp_bwd="pair")
+
+
+def pretrain_rows(frames):
+    """The batched fusion pass's rows: 2B clips x (frames/2 x 49 + L) tokens."""
+    return 2 * PB * (frames // 2 * 49 + L)
+
+
+def pretrain_kernel_phase(cfg, dev, results, seed=SEED + 7, rows=PRETRAIN_ROWS):
     """K3M against its plain version at the fusion tower's shape, a seeded
     mask at keep 0.9; times per pretrain step (one call per fusion layer)."""
     import torch
@@ -779,7 +938,7 @@ def pretrain_kernel_phase(cfg, dev, results, seed=SEED + 7):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     bt = cfg.fusion.bert
-    rows, C, H = PRETRAIN_ROWS, bt.hidden_size, bt.intermediate_size
+    C, H = bt.hidden_size, bt.intermediate_size
     x, w = randn(rows, C), mlp_weights(randn, C, H)
     mask = (torch.rand(rows, C, generator=g, device=dev) < 0.9).float() / 0.9
     eps = bt.layer_norm_eps
@@ -791,22 +950,23 @@ def pretrain_kernel_phase(cfg, dev, results, seed=SEED + 7):
                               work=mlp_work(rows, C, H, extra_bytes=4 * rows * C))
 
 
-def make_pretrain_batches(dev):
+def make_pretrain_batches(dev, frames=PT, steps=TRAIN_STEPS, seed=SEED + 6):
     """bench_train's seeded batches (bench.py:418-431), on the card: clips
-    normal * 0.5 (PB, PT, 224, 224, 3), ids in [1000, 30000) with position 3
-    masked to 103 and its label kept, an all-ones attention mask, a random
-    0/1 (PB, 7, 7) video mask."""
+    normal * 0.5 (PB, frames, 224, 224, 3), ids in [1000, 30000) with
+    position 3 masked to 103 and its label kept, an all-ones attention mask,
+    a random 0/1 (PB, 7, 7) video mask."""
     import torch
 
-    rng = np.random.default_rng(SEED + 6)
+    rng = np.random.default_rng(seed)
     batches = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         tok = rng.integers(1000, 30000, size=(PB, L))
         label = np.full((PB, L), -100)
         label[:, 3] = tok[:, 3]
         tok[:, 3] = 103
         batches.append({
-            "imgs": torch.from_numpy(rng.normal(size=(PB, PT, S, S, 3)).astype(np.float32) * 0.5),
+            "imgs": torch.from_numpy(rng.normal(size=(PB, frames, S, S, 3)).astype(np.float32)
+                                     * 0.5),
             "token_ids": torch.from_numpy(tok), "input_mask": torch.ones(PB, L, dtype=torch.long),
             "mlm_label": torch.from_numpy(label),
             "v_token_mask": torch.from_numpy(rng.integers(0, 2, size=(PB, 7, 7)))})
@@ -833,24 +993,26 @@ def make_pretrain_step(model, dev):
     return state, step_checked, torch.Generator(device=dev).manual_seed(SEED)
 
 
-def pretrain_phase(dev, card, profile: bool):
-    """The pretrain step from one seed with the kernels and with the plain
-    versions, as compare_train_paths checks it. -> the kernel path's counts."""
+def pretrain_phase(dev, card, profile: bool, cfg=None, frames=PT, launches=PRETRAIN_LAUNCHES,
+                   steps=TRAIN_STEPS, tag=None):
+    """The pretrain step (``cfg``, bench_train's by default, at ``frames``
+    frames) from one seed with the kernels and with the plain versions, as
+    compare_train_paths checks it. -> the kernel path's counts."""
     import torch
 
     from clover_tpu_torch.models import CloverPretrain, init_params
 
-    cfg = pretrain_config()
+    cfg = cfg or pretrain_config()
     check(2 * PB == TB and cfg.fusion.num_frames * cfg.fusion.spatial_tokens + L
-          == PRETRAIN_ROWS // (2 * PB), "pretrain shapes")
+          == pretrain_rows(frames) // (2 * PB), "pretrain shapes")
     model = CloverPretrain(cfg, dtype=torch.bfloat16, kernels=True)
     init_params(model, torch.Generator().manual_seed(SEED))
     plain = CloverPretrain(cfg, dtype=torch.bfloat16, kernels=False)
     plain.load_state_dict(model.state_dict())
     check(all(p.device == dev for p in model.parameters()), "the pretrain model is not on the card")
-    counts = compare_train_paths(model, plain, make_pretrain_batches(dev), dev, card, profile,
-                                 f"pretrain ({PT} frames)", PRETRAIN_LAUNCHES,
-                                 f"B={PB}, {PT}x{S}^2, L={L}", PB, make_pretrain_step)
+    counts = compare_train_paths(model, plain, make_pretrain_batches(dev, frames, steps), dev,
+                                 card, profile, tag or f"pretrain ({frames} frames)", launches,
+                                 f"B={PB}, {frames}x{S}^2, L={L}", PB, make_pretrain_step)
     del model, plain
     torch.cuda.empty_cache()
     return counts
@@ -1082,6 +1244,23 @@ def main(argv=None) -> int:
     pretrain_kernel_phase(pcfg, dev, pre)
     pre_counts = pretrain_phase(dev, card, profile)
 
+    # the 32-frame pretrain step under the TPU's remat recipe (K7)
+    print(card_line(), flush=True)
+    pre32 = {}
+    p32cfg = pretrain32_config()
+    train_kernel_phase(p32cfg, dev, pre32, PT32, SEED + 8)
+    pretrain_kernel_phase(p32cfg, dev, pre32, SEED + 9, pretrain_rows(PT32))
+    pre32_counts = pretrain_phase(dev, card, profile, p32cfg, PT32, PRETRAIN32_LAUNCHES,
+                                  tag=f"pretrain ({PT32} frames, remat 0-1, K7)")
+
+    # the 8-frame pretrain step through the pair (K8a + K8b)
+    print(card_line(), flush=True)
+    pre_erf = {}
+    ecfg = pretrain_erf_config()
+    train_kernel_phase(ecfg, dev, pre_erf, PT, SEED + 10)
+    pre_erf_counts = pretrain_phase(dev, card, False, ecfg, PT, PRETRAIN_ERF_LAUNCHES,
+                                    PRETRAIN_ERF_STEPS, f"pretrain ({PT} frames, erf, remat, K8)")
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -1091,7 +1270,11 @@ def main(argv=None) -> int:
                "K5": ("csrc/window_attention_bwd.cu", "clover_tpu/ops/window_attention.py:2499"),
                "K2S": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
                "K6": ("csrc/attn_block.cu", "clover_tpu/ops/attn_block.py:489"),
-               "K3M": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:418")}
+               "K3M": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:418"),
+               "K2T": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
+               "K7": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:942"),
+               "K8a": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:1008"),
+               "K8b": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:1008")}
     # at N=392 the TPU runs the attention and its backward as the head-group
     # kernels, which K1 and K5 replace there
     sources32 = dict(sources, K1=(sources["K1"][0], "clover_tpu/ops/window_attention.py:989"),
@@ -1110,6 +1293,12 @@ def main(argv=None) -> int:
     rows += [(k, pre, pre_counts,
               f"pretrain, ms per step, launches over {TRAIN_STEPS} steps", sources)
              for k in ("K1", "K5", "K2S", "K3M")]
+    rows += [(k, pre32, pre32_counts,
+              f"pretrain32-remat, ms per step, launches over {TRAIN_STEPS} steps", sources32)
+             for k in ("K6", "K1", "K5", "K2T", "K7", "K3M")]
+    rows += [(k, pre_erf, pre_erf_counts,
+              f"pretrain-erf-pair, ms per step, launches over {PRETRAIN_ERF_STEPS} steps", sources)
+             for k in ("K8a", "K8b", "K1", "K5", "K2T")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],

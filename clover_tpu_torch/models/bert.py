@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import LayerNorm, Linear, dropout, dropout_mask
+from clover_tpu_torch.models.layers import LayerNorm, Linear, dropout, dropout_mask, remat
 from clover_tpu_torch.ops.mlp_block import (
     FusedMlpPostlnDropoutFn,
     fused_mlp_postln,
@@ -176,16 +176,25 @@ class BertLayer(nn.Module):
 
 
 class BertEncoder(nn.Module):
-    def __init__(self, cfg: BertConfig, kernels: bool = True):
+    """The stack of post-LN layers; with ``remat`` each layer runs through
+    :func:`remat` where autograd records (the JAX ``nn.remat(BertLayer)``)."""
+
+    def __init__(self, cfg: BertConfig, kernels: bool = True, remat: bool = False):
         super().__init__()
         self.num_layers = cfg.num_hidden_layers
+        self.remat = remat
         for i in range(cfg.num_hidden_layers):
             self.add_module(f"layer_{i}", BertLayer(cfg, kernels))
 
     def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        checkpointed = self.remat and torch.is_grad_enabled()
         for i in range(self.num_layers):
-            x = getattr(self, f"layer_{i}")(x, attn_bias, generator)
+            layer = getattr(self, f"layer_{i}")
+            if checkpointed:
+                x = remat(layer, x, attn_bias, generator=generator)
+            else:
+                x = layer(x, attn_bias, generator)
         return x
 
 
@@ -193,11 +202,11 @@ class BertTextEncoder(nn.Module):
     """Embeddings + encoder -> (B, S, hidden) last hidden state in ``dtype``."""
 
     def __init__(self, cfg: BertConfig = BertConfig(), dtype: torch.dtype = torch.float32,
-                 kernels: bool = True):
+                 kernels: bool = True, remat: bool = False):
         super().__init__()
         self.dtype = dtype
         self.embeddings = BertEmbeddings(cfg, kernels)
-        self.encoder = BertEncoder(cfg, kernels)
+        self.encoder = BertEncoder(cfg, kernels, remat)
 
     def forward(self, input_ids: torch.Tensor, attention_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

@@ -14,7 +14,8 @@ LayerNorm kernel site (K4) in eval.
 The text embeddings (``embeddings``) exist only with ``text_embeddings``:
 the pretrain model always passes the text tower's hidden states
 (``text_input_embeds``), so flax creates no such parameters in its tree, and
-the port builds none there either.
+the port builds none there either. ``remat`` recomputes each encoder
+layer in the backward (``BertEncoder``'s).
 """
 
 from __future__ import annotations
@@ -52,13 +53,13 @@ class FusionConfig:
 
 class CrossModalTransformer(nn.Module):
     def __init__(self, cfg: FusionConfig = FusionConfig(), dtype: torch.dtype = torch.float32,
-                 kernels: bool = True, text_embeddings: bool = True):
+                 kernels: bool = True, text_embeddings: bool = True, remat: bool = False):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         D = cfg.hidden_size
         if text_embeddings:
             self.embeddings = BertEmbeddings(cfg.bert, kernels)
-        self.encoder = BertEncoder(cfg.bert, kernels)
+        self.encoder = BertEncoder(cfg.bert, kernels, remat)
         self.token_type_embeddings = nn.Embedding(cfg.token_types, D)
         # learned visual positions: (1, 1, S, D) spatial + (1, T, 1, D) temporal
         self.vis_space_pos = nn.Parameter(torch.zeros(1, 1, cfg.spatial_tokens, D))

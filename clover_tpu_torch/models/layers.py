@@ -10,10 +10,11 @@ device, which the caller passes down the forward.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
@@ -119,6 +120,29 @@ class DropPath(nn.Module):
         keep = 1.0 - self.rate
         mask = _keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep, generator, x.device)
         return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def remat(fn: Callable, *args, generator: Optional[torch.Generator] = None):
+    """``fn(*args, generator=generator)`` with its activations recomputed in the
+    backward instead of saved (the port's ``nn.remat``):
+    ``torch.utils.checkpoint`` (non-reentrant) around the call. The
+    checkpoint restores only the global RNG, and the port draws dropout and
+    DropPath from ``generator``; so the recompute runs on a fresh generator
+    set to ``generator``'s state before the call, draws the forward's masks
+    again, and leaves the live generator where the forward left it."""
+    state = None if generator is None else generator.get_state()
+    replays = []
+
+    def run(*a):
+        gen = generator
+        if replays:   # the backward's recompute
+            gen = torch.Generator(device=generator.device)
+            gen.set_state(state)
+        elif generator is not None:
+            replays.append(True)
+        return fn(*a, generator=gen)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 class ProjectorNorm(nn.Module):

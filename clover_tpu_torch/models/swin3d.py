@@ -25,14 +25,14 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, trunc_normal_
+from clover_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, remat, trunc_normal_
 from clover_tpu_torch.ops.attn_block import (
     FusedAttnBlockFn,
     fused_window_attn_block,
@@ -78,6 +78,16 @@ class SwinConfig:
     fused_attn: str = "auto"
     mask_token: bool = False    # the SimMIM mask token of the pretrain model
     embed_impl: str = "host_s2d"
+    # gradient checkpointing: True remats every block, a tuple of stage ids
+    # the blocks of those stages (the TPU's 32-frame recipe: (0, 1))
+    use_checkpoint: Any = False
+    # the MLP half in training: stash z and the LN statistics for the
+    # backward (the JAX CLOVER_MLP_STASH, default on), or save x only and
+    # recompute LN + fc1 + GELU in the backward by mlp_bwd: 'xla' plain
+    # PyTorch, 'onepass' the kernel K7 (the JAX CLOVER_MLP_BWD1), 'pair'
+    # K8a + K8b (the JAX CLOVER_MLP_BWD=1; erf GELU only)
+    mlp_stash: bool = True
+    mlp_bwd: str = "xla"
 
     def __post_init__(self):
         if self.fused_attn not in ("auto", "on", "off"):
@@ -85,6 +95,20 @@ class SwinConfig:
         if self.embed_impl not in ("host_s2d", "s2d", "conv"):
             raise ValueError(f"embed_impl must be 'host_s2d', 's2d' or 'conv', "
                              f"got {self.embed_impl!r}")
+        if self.mlp_bwd not in ("xla", "onepass", "pair"):
+            raise ValueError(f"mlp_bwd must be 'xla', 'onepass' or 'pair', got {self.mlp_bwd!r}")
+        if self.mlp_bwd == "pair" and self.gelu != "erf":
+            # the JAX package falls back to XLA here without a word
+            raise ValueError("mlp_bwd='pair' takes the erf GELU only (gelu='erf')")
+        if not isinstance(self.use_checkpoint, (bool, tuple, list)):
+            raise ValueError(f"use_checkpoint must be a bool or a tuple of stage ids, "
+                             f"got {self.use_checkpoint!r}")
+
+    def remat_stage(self, i_stage: int) -> bool:
+        """Does stage ``i_stage`` recompute its blocks in the backward?"""
+        if isinstance(self.use_checkpoint, (tuple, list)):
+            return i_stage in self.use_checkpoint
+        return bool(self.use_checkpoint)
 
     @property
     def num_features(self) -> int:
@@ -312,10 +336,12 @@ class SwinBlock3D(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True,
-                 drop_path: float = 0.0, fused_attn: str = "auto"):
+                 drop_path: float = 0.0, fused_attn: str = "auto", mlp_stash: bool = True,
+                 mlp_bwd: str = "xla"):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.gelu = gelu
+        self.mlp_stash, self.mlp_bwd = mlp_stash, mlp_bwd
         self.kernels = kernels
         self.fused_attn = fused_attn
         self.norm1 = LayerNorm(dim, kernel=kernels)
@@ -385,7 +411,8 @@ class SwinBlock3D(nn.Module):
         row_scale = None
         if self.drop_path.active():
             row_scale = self.drop_path.sample_scale(B, generator, x.device).repeat_interleave(L)
-        out = FusedLnMlpResidualFn.apply(*args, row_scale, 1e-5, self.gelu, self.kernels)
+        out = FusedLnMlpResidualFn.apply(*args, row_scale, 1e-5, self.gelu, self.kernels,
+                                         self.mlp_stash, self.mlp_bwd)
         return out.view(x.shape)
 
 
@@ -476,7 +503,8 @@ class SwinTransformer3D(nn.Module):
     (pixel-scale with fold_normalize, else normalized) -> (B, D', H'/8, W'/8,
     num_features) in the same dtype. Block i's DropPath rate is
     ``linspace(0, drop_path_rate, blocks)[i]``; ``generator`` feeds it in
-    training.
+    training. The blocks of the stages ``cfg.use_checkpoint`` names run
+    through :func:`remat` where autograd records (the JAX ``nn.remat``).
 
     ``token_mask`` (B, mh, mw) 0/1 (needs ``cfg.mask_token``) mixes the
     embedded tokens with the mask token, x * (1 - w) + mask_token * w, the
@@ -498,7 +526,8 @@ class SwinTransformer3D(nn.Module):
                     dim, cfg.num_heads[i_stage], cfg.window_size,
                     (0, 0, 0) if i_blk % 2 == 0 else shift, cfg.mlp_ratio, cfg.qkv_bias,
                     cfg.qk_scale, cfg.gelu, kernels,
-                    dpr[sum(cfg.depths[:i_stage]) + i_blk], cfg.fused_attn))
+                    dpr[sum(cfg.depths[:i_stage]) + i_blk], cfg.fused_attn, cfg.mlp_stash,
+                    cfg.mlp_bwd))
             if i_stage < len(cfg.depths) - 1:
                 self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
         self.norm = LayerNorm(cfg.num_features, kernel=kernels)
@@ -538,10 +567,16 @@ class SwinTransformer3D(nn.Module):
                     f"{window}; only window-resident stages are ported")
             N = int(np.prod(window))
             x = window_partition(x, window).reshape(B, -1, C)
+            checkpointed = cfg.remat_stage(i_stage) and torch.is_grad_enabled()
             for i_blk in range(depth):
                 name = f"stage_{i_stage}_block_{i_blk}"
                 blk_bias = bias_cache.get(name) if bias_cache is not None else None
-                x = getattr(self, name)(x, dims, blk_bias, generator)
+                block = getattr(self, name)
+                if checkpointed:
+                    x = remat(functools.partial(block, dims=dims, bias=blk_bias), x,
+                              generator=generator)
+                else:
+                    x = block(x, dims, blk_bias, generator)
             x = window_reverse(x.reshape(-1, N, C), window, B, D, H, W)
             if i_stage < len(cfg.depths) - 1:
                 x = getattr(self, f"stage_{i_stage}_downsample")(x)

@@ -14,8 +14,14 @@ from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
     FusedMlpPostlnDropoutFn,
     fused_ln_mlp_residual,
     fused_ln_mlp_residual_stash,
+    fused_ln_mlp_residual_train,
     fused_mlp_postln,
     fused_mlp_postln_dropout,
+    ln_mlp_bwd_dw,
+    ln_mlp_bwd_dx,
+    ln_mlp_residual_bwd_onepass,
+    ln_mlp_residual_bwd_pair,
+    ln_mlp_residual_bwd_recompute,
     ln_mlp_residual_bwd_stash,
     ln_mlp_residual_plain,
     mlp_postln_mask_bwd,
@@ -32,7 +38,8 @@ from clover_tpu_torch.ops.window_attention import (  # noqa: F401
 
 KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm,
            flat2_window_attention_bwd, fused_ln_mlp_residual_stash, fused_window_attn_block,
-           fused_mlp_postln_dropout)
+           fused_mlp_postln_dropout, fused_ln_mlp_residual_train, ln_mlp_residual_bwd_onepass,
+           ln_mlp_bwd_dx, ln_mlp_bwd_dw)
 
 
 def reset_launch_counts() -> None:

@@ -10,6 +10,15 @@
   ``ln_mlp_residual_bwd_stash`` is that backward (the JAX
   ``_xla_backward_stash``, plain PyTorch GEMMs), and
   ``FusedLnMlpResidualFn`` ties the two into autograd.
+- ``fused_ln_mlp_residual_train``: the training form with the stash off
+  (the JAX ``_forward(..., row_scale)`` that ``_fwd`` runs when
+  ``CLOVER_MLP_STASH=0``): ``x + s * MLP(LN(x))``, nothing saved but x.
+  Its backward recomputes LN, fc1 and GELU: ``ln_mlp_residual_bwd_recompute``
+  (the JAX ``_xla_backward``, plain PyTorch GEMMs), the one-pass kernel K7
+  (``ln_mlp_residual_bwd_onepass``, the JAX ``_backward_onepass``) or the
+  pair K8a + K8b (``ln_mlp_residual_bwd_pair``, the JAX
+  ``_backward_pallas``, erf only), picked by ``FusedLnMlpResidualFn``'s
+  ``mlp_bwd``.
 - ``fused_mlp_postln``: ``LN(x + gelu_erf(x W1^T + b1) W2^T + b2)``, the
   BERT post-LN half (port of ``::fused_mlp_postln``).
 - ``fused_mlp_postln_dropout``: the same half in training, with its hidden
@@ -26,6 +35,9 @@ plain version for a CPU tensor. Weights are torch ``Linear`` layouts: ``w1``
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +49,13 @@ _HIDDEN_CHUNK = 128      # the kernels walk the hidden in chunks of 128 columns
 # K3 splits the hidden over this many blocks per 32 rows: BERT-base's
 # B*L = 960 rows make 30 row blocks, too few for the card's 132 SMs
 _POSTLN_SPLITS = 4
+# rows a block of the backward kernels by width (csrc/mlp_block_bwd.cu:
+# launch_rows_c, and bwd_dw_kernel's R, whose hidden chunk is 8192 / C)
+_BWD_ROWS = {128: 128, 256: 64, 512: 64, 1024: 32}
+_DW_ROWS = {128: 16, 256: 32, 512: 32, 1024: 32}
+# K7's fp32 slices (one per persistent block, 2 C H + H + 3 C floats each)
+# are held under this many bytes in all
+_SLOT_BYTES = 4 << 30
 
 
 def ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
@@ -89,17 +108,31 @@ def _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, widths, hidden_multiple):
     return out, (x, ln_w, ln_b, w1b, b1, w2b, b2, out)
 
 
+def _check_gelu(gelu: str) -> None:
+    if gelu not in _GELU:
+        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+
+
+def _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale=None, stash=None):
+    """K2 on CUDA tensors: -> out; with ``row_scale`` the training form's
+    DropPath scale, with ``stash`` (z, mean, rstd) its stash outputs."""
+    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (128, 256, 512, 1024),
+                             _HIDDEN_CHUNK)
+    if row_scale is not None:
+        _build.require(row_scale, "row_scale", torch.float32, x.device, (x.shape[0],))
+    _build.launch("clover_ln_mlp_residual", *bufs[:7], row_scale, out,
+                  *(stash if stash is not None else (None, None, None)), *x.shape, w1.shape[0],
+                  float(eps), int(gelu == "tanh"), _build.stream(x.device))
+    return out
+
+
 def fused_ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
                           gelu: str = "erf"):
     """``x + MLP(LN(x))`` over 2-D x (rows, C); gelu is 'erf' or 'tanh'."""
-    if gelu not in _GELU:
-        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+    _check_gelu(gelu)
     if not x.is_cuda:
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu)
-    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (128, 256, 512, 1024),
-                             _HIDDEN_CHUNK)
-    _build.launch("clover_ln_mlp_residual", *bufs[:7], None, out, None, None, None, *x.shape,
-                  w1.shape[0], float(eps), int(gelu == "tanh"), _build.stream(x.device))
+    out = _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu)
     fused_ln_mlp_residual.launches += 1
     return out
 
@@ -108,23 +141,28 @@ def fused_ln_mlp_residual_stash(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5
                                 gelu: str = "erf", row_scale=None):
     """Training form of ``fused_ln_mlp_residual``: -> (x + row_scale * MLP(LN(x)),
     (z (rows, H) in x's dtype, mean (rows,) fp32, rstd (rows,) fp32))."""
-    if gelu not in _GELU:
-        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+    _check_gelu(gelu)
     if not x.is_cuda:
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale,
                                      want_stash=True)
-    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (128, 256, 512, 1024),
-                             _HIDDEN_CHUNK)
     rows, H = x.shape[0], w1.shape[0]
-    if row_scale is not None:
-        _build.require(row_scale, "row_scale", torch.float32, x.device, (rows,))
-    z = torch.empty((rows, H), dtype=x.dtype, device=x.device)
     mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-    rstd = torch.empty_like(mean)
-    _build.launch("clover_ln_mlp_residual", *bufs[:7], row_scale, out, z, mean, rstd, *x.shape,
-                  H, float(eps), int(gelu == "tanh"), _build.stream(x.device))
+    stash = (torch.empty((rows, H), dtype=x.dtype, device=x.device), mean, torch.empty_like(mean))
+    out = _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale, stash)
     fused_ln_mlp_residual_stash.launches += 1
-    return out, (z, mean, rstd)
+    return out, stash
+
+
+def fused_ln_mlp_residual_train(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
+                                gelu: str = "erf", row_scale=None):
+    """Training form of ``fused_ln_mlp_residual`` with the stash off:
+    x + row_scale * MLP(LN(x)) (K2 with the row scale and no stash)."""
+    _check_gelu(gelu)
+    if not x.is_cuda:
+        return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale)
+    out = _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale)
+    fused_ln_mlp_residual_train.launches += 1
+    return out
 
 
 def _mm_f32(a, b):
@@ -138,27 +176,23 @@ def _mm_f32(a, b):
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
-def ln_mlp_residual_bwd_stash(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, stash,
-                              eps: float, gelu: str, g):
-    """Backward of the training form from its stash: port of the JAX
-    ``_xla_backward_stash`` (with its default bf16 crossing of dh). Every
-    product takes compute-dtype operands; dx comes back in x's dtype, the
-    parameter gradients in fp32. ``row_scale`` takes no gradient. GELU and
-    dz = dh * GELU'(z) over the (rows, H) hidden are one elementwise pass
-    each, in fp32 arithmetic rounded once to x's dtype.
-    -> (dx, dln_w, dln_b, dw1, db1, dw2, db2)."""
-    del eps   # the stash carries the LN statistics
-    z_b, mean, rstd = stash
+def _ln_mlp_bwd(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, gelu, g, xn_raw, rstd, z_b,
+                want_drs):
+    """The MLP half's backward from LN's normalised x (xn_raw (rows, C),
+    rstd (rows, 1)) and the pre-GELU hidden z_b in x's dtype (the bf16
+    crossing of the JAX ``_BWD_HBM_BF16``). dh crosses as x's dtype too;
+    GELU and dz = dh * GELU'(z) over the (rows, H) hidden are one
+    elementwise pass each, in fp32 arithmetic rounded once to x's dtype; db1
+    sums the rounded dz. -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
     dt = x.dtype
     acc = torch.promote_types(dt, torch.float32)
-    xn_raw = (x.to(acc) - mean[:, None]) * rstd[:, None]
     y_b = (xn_raw * ln_w + ln_b).to(dt)
     w1_b, w2_b = w1.to(dt), w2.to(dt)
     h_b = F.gelu(z_b, approximate=_GELU[gelu])
     g32 = g.to(acc)
     gy = g32 * row_scale.to(acc)[:, None] if row_scale is not None else g32
     gy_b = gy.to(dt)
-    dh_b = torch.mm(gy_b, w2_b)                       # crosses as dt, like _BWD_HBM_BF16
+    dh_b = torch.mm(gy_b, w2_b)
     dz_b = torch.ops.aten.gelu_backward(dh_b, z_b, approximate=_GELU[gelu])
     dy = _mm_f32(dz_b, w1_b)
     dw1 = _mm_f32(dz_b.t(), y_b)
@@ -168,39 +202,220 @@ def ln_mlp_residual_bwd_stash(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, stash,
     dyt = dy * ln_w
     m1 = dyt.mean(-1, keepdim=True)
     m2 = (dyt * xn_raw).mean(-1, keepdim=True)
-    dx = rstd[:, None] * (dyt - m1 - xn_raw * m2) + g32
-    dln_w = (dy * xn_raw).sum(0)
-    dln_b = dy.sum(0)
-    return (dx.to(dt), dln_w.to(ln_w.dtype), dln_b.to(ln_b.dtype), dw1.to(w1.dtype),
-            db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype))
+    dx = rstd * (dyt - m1 - xn_raw * m2) + g32
+    drs = None
+    if want_drs and row_scale is not None:
+        mlp_out = _mm_f32(h_b, w2_b.t()) + b2
+        drs = (g32 * mlp_out).sum(-1).to(row_scale.dtype)
+    return (dx.to(dt), (dy * xn_raw).sum(0).to(ln_w.dtype), dy.sum(0).to(ln_b.dtype),
+            dw1.to(w1.dtype), db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype), drs)
+
+
+def ln_mlp_residual_bwd_stash(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, stash,
+                              eps: float, gelu: str, g):
+    """Backward of the training form from its stash: port of the JAX
+    ``_xla_backward_stash`` (with its default bf16 crossing of dh). Every
+    product takes compute-dtype operands; dx comes back in x's dtype, the
+    parameter gradients in fp32. ``row_scale`` takes no gradient.
+    -> (dx, dln_w, dln_b, dw1, db1, dw2, db2)."""
+    del eps   # the stash carries the LN statistics
+    z_b, mean, rstd = stash
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xn_raw = (x.to(acc) - mean[:, None]) * rstd[:, None]
+    return _ln_mlp_bwd(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, gelu, g, xn_raw,
+                       rstd[:, None], z_b, False)[:7]
+
+
+def ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float,
+                                  gelu: str, g, want_drs: bool = True):
+    """Backward of the training form by recompute: port of the JAX
+    ``_xla_backward`` with its default bf16 crossings of z and dh
+    (``_BWD_HBM_BF16``; identities in fp32). Every product takes
+    compute-dtype operands with an fp32 result; db1 sums the rounded dz.
+    dx comes back in x's dtype, the parameter gradients in fp32, and drs =
+    sum_c g * (h W2^T + b2) per row where ``row_scale`` is given (else
+    None; ``want_drs=False`` skips it for autograd, where the row scale
+    takes no gradient). -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
+    mean = x32.mean(-1, keepdim=True)
+    xc = x32 - mean
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xn_raw = xc * rstd
+    y_b = (xn_raw * ln_w + ln_b).to(x.dtype)
+    z_b = (_mm_f32(y_b, w1.to(x.dtype).t()) + b1).to(x.dtype)
+    return _ln_mlp_bwd(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, gelu, g, xn_raw, rstd, z_b,
+                       want_drs)
+
+
+def _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g):
+    """Check the backward kernels' inputs; -> (W1, W1^T, W2^T as bf16, dx, drs)."""
+    rows, C = x.shape
+    H = w1.shape[0]
+    dev = x.device
+    _build.require(x, "x", torch.bfloat16, dev)
+    _build.require(g, "g", torch.bfloat16, dev, (rows, C))
+    for name, t, n in (("ln_w", ln_w, C), ("ln_b", ln_b, C), ("b1", b1, H), ("b2", b2, C)):
+        _build.require(t, name, torch.float32, dev, (n,))
+    if C not in _BWD_ROWS or tuple(w1.shape) != (H, C) or tuple(w2.shape) != (C, H) or H % 64:
+        raise ValueError(f"the MLP backward kernels take C in {tuple(_BWD_ROWS)}, w1 (H, C), "
+                         f"w2 (C, H) and H % 64 == 0; got x {tuple(x.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
+    drs = None
+    if row_scale is not None:
+        _build.require(row_scale, "row_scale", torch.float32, dev, (rows,))
+        drs = torch.empty(rows, dtype=torch.float32, device=dev)
+    w1b = w1.to(torch.bfloat16).contiguous()
+    return (w1b, w1b.t().contiguous(), w2.to(torch.bfloat16).t().contiguous(),
+            torch.empty_like(x), drs)
+
+
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, with_dw):
+    """K7 (with_dw) or K8a: -> (dx, drs, the summed slot as one fp32 buffer)."""
+    rows, C = x.shape
+    H = w1.shape[0]
+    w1b, w1t, w2t, dx, drs = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
+    n_rb = -(-rows // _BWD_ROWS[C])
+    stride = 2 * H * C + H + 3 * C if with_dw else 3 * C
+    slots = min(n_rb, max(1, _SLOT_BYTES // (4 * stride)), _sms(x.device)) if with_dw else n_rb
+    part = torch.empty(slots * stride, dtype=torch.float32, device=x.device)
+    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    _build.launch("clover_mlp_bwd_rows", x, ln_w, ln_b, w1b, w1t, b1, w2t, b2, g, row_scale, dx,
+                  drs, part, out, rows, C, H, slots, int(with_dw), float(eps),
+                  int(gelu == "tanh"), _build.stream(x.device))
+    return dx, drs, out
+
+
+def ln_mlp_residual_bwd_onepass(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float,
+                                gelu: str, g):
+    """K7, the one-pass recompute backward (the JAX ``_backward_onepass``),
+    tanh or erf; for CPU tensors ``ln_mlp_residual_bwd_recompute``.
+    -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
+    _check_gelu(gelu)
+    if not x.is_cuda:
+        return ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu,
+                                             g)
+    C, H = x.shape[1], w1.shape[0]
+    dx, drs, out = _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, True)
+    ln_mlp_residual_bwd_onepass.launches += 1
+    dw1, dw2, db1, tail = out.split((H * C, H * C, H, 3 * C))
+    dscale, dbias, db2 = tail.view(3, C)
+    return dx, dscale, dbias, dw1.view(H, C), db1, dw2.view(C, H), db2, drs
+
+
+def _erf_only(gelu: str) -> None:
+    if gelu != "erf":
+        raise ValueError(f"the MLP backward pair takes the erf GELU only (as the JAX "
+                         f"_backward_pallas), got {gelu!r}")
+
+
+def ln_mlp_bwd_dx(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: str, g):
+    """K8a, the pair's row kernel (the JAX ``_kernel_bwd_dx``), erf only.
+    -> (dx, dln_w, dln_b, db2, drs)."""
+    _erf_only(gelu)
+    if not x.is_cuda:
+        r = ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
+        return r[0], r[1], r[2], r[6], r[7]
+    dx, drs, out = _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, False)
+    ln_mlp_bwd_dx.launches += 1
+    dscale, dbias, db2 = out.view(3, x.shape[1])
+    return dx, dscale, dbias, db2, drs
+
+
+def ln_mlp_bwd_dw(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: str, g):
+    """K8b, the pair's weight-gradient kernel (the JAX ``_kernel_bwd_dw``),
+    erf only. -> (dw1, db1, dw2)."""
+    _erf_only(gelu)
+    if not x.is_cuda:
+        r = ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
+        return r[3], r[4], r[5]
+    rows, C = x.shape
+    H = w1.shape[0]
+    w1b, _, w2t, _, _ = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
+    chunks = H // (8192 // C)
+    # enough (chunk, row group) blocks for two waves on the card's SMs
+    groups = min(-(-rows // _DW_ROWS[C]), max(1, math.ceil(2 * _sms(x.device) / chunks)))
+    stride = 2 * H * C + H
+    part = torch.empty(groups * stride, dtype=torch.float32, device=x.device)
+    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    _build.launch("clover_mlp_bwd_dw", x, ln_w, ln_b, w1b, b1, w2t, g, row_scale, part, out, rows,
+                  C, H, groups, float(eps), _build.stream(x.device))
+    ln_mlp_bwd_dw.launches += 1
+    dw1, dw2, db1 = out.split((H * C, H * C, H))
+    return dw1.view(H, C), db1, dw2.view(C, H)
+
+
+def ln_mlp_residual_bwd_pair(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: str,
+                             g):
+    """The recompute backward as the pair K8a (dx, dln_w, dln_b, db2, drs)
+    then K8b (dw1, db1, dw2), erf only (the JAX ``_backward_pallas``); for
+    CPU tensors ``ln_mlp_residual_bwd_recompute``.
+    -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
+    _erf_only(gelu)
+    if not x.is_cuda:
+        return ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu,
+                                             g)
+    args = (x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
+    dx, dscale, dbias, db2, drs = ln_mlp_bwd_dx(*args)
+    dw1, db1, dw2 = ln_mlp_bwd_dw(*args)
+    return dx, dscale, dbias, dw1, db1, dw2, db2, drs
+
+
+# the recompute backward by route; the plain one skips drs (autograd takes
+# no row-scale gradient), which the kernels form at no extra product
+_RECOMPUTE_BWD = {"xla": functools.partial(ln_mlp_residual_bwd_recompute, want_drs=False),
+                  "onepass": ln_mlp_residual_bwd_onepass, "pair": ln_mlp_residual_bwd_pair}
 
 
 class FusedLnMlpResidualFn(torch.autograd.Function):
-    """The Swin MLP half in training: forward K2's stash form
-    (``kernels=True``; its plain version for CPU tensors) or the plain one
-    (``kernels=False``), backward ``ln_mlp_residual_bwd_stash``.
+    """The Swin MLP half in training.
+
+    With the stash on (``mlp_stash``): forward K2's stash form
+    (``kernels=True``; its plain version for CPU tensors) or the plain one,
+    backward ``ln_mlp_residual_bwd_stash``. With it off: forward K2's
+    training form without a stash (or the plain one), saving x and the
+    parameters only; the backward recomputes by ``mlp_bwd``: 'xla'
+    ``ln_mlp_residual_bwd_recompute``, 'onepass' K7, 'pair' K8a + K8b
+    (``kernels=False``: the plain recompute for every route). The row scale
+    takes no gradient.
 
     ``FusedLnMlpResidualFn.apply(x, ln_w, ln_b, w1, b1, w2, b2, row_scale,
-    eps, gelu, kernels)``"""
+    eps, gelu, kernels[, mlp_stash, mlp_bwd])``"""
 
     @staticmethod
-    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, kernels):
-        if kernels:
-            out, stash = fused_ln_mlp_residual_stash(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu,
-                                                     row_scale)
-        else:
-            out, stash = ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu,
-                                               row_scale, want_stash=True)
-        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, *stash)
+    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, kernels,
+                mlp_stash=True, mlp_bwd="xla"):
+        if mlp_bwd not in _RECOMPUTE_BWD:
+            raise ValueError(f"mlp_bwd must be one of {tuple(_RECOMPUTE_BWD)}, got {mlp_bwd!r}")
         ctx.args = (eps, gelu)
+        params = (x, ln_w, ln_b, w1, b1, w2, b2)
+        if not mlp_stash:
+            op = fused_ln_mlp_residual_train if kernels else ln_mlp_residual_plain
+            out = op(*params, eps, gelu, row_scale)
+            ctx.save_for_backward(*params, row_scale)
+            ctx.bwd = _RECOMPUTE_BWD[mlp_bwd if kernels else "xla"]
+            return out
+        if kernels:
+            out, stash = fused_ln_mlp_residual_stash(*params, eps, gelu, row_scale)
+        else:
+            out, stash = ln_mlp_residual_plain(*params, eps, gelu, row_scale, want_stash=True)
+        ctx.save_for_backward(*params, row_scale, *stash)
+        ctx.bwd = None
         return out
 
     @staticmethod
     def backward(ctx, g):
         x, ln_w, ln_b, w1, b1, w2, b2, row_scale, *stash = ctx.saved_tensors
-        grads = ln_mlp_residual_bwd_stash(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, stash,
-                                          *ctx.args, g.contiguous())
-        return (*grads, None, None, None, None)
+        params = (x, ln_w, ln_b, w1, b1, w2, b2)
+        if ctx.bwd is None:
+            grads = ln_mlp_residual_bwd_stash(*params, row_scale, stash, *ctx.args, g.contiguous())
+        else:
+            grads = ctx.bwd(*params, row_scale, *ctx.args, g.contiguous())[:7]
+        return (*grads, None, None, None, None, None, None)
 
 
 def _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps):
@@ -313,5 +528,9 @@ class FusedMlpPostlnDropoutFn(torch.autograd.Function):
 
 fused_ln_mlp_residual.launches = 0
 fused_ln_mlp_residual_stash.launches = 0
+fused_ln_mlp_residual_train.launches = 0
+ln_mlp_residual_bwd_onepass.launches = 0
+ln_mlp_bwd_dx.launches = 0
+ln_mlp_bwd_dw.launches = 0
 fused_mlp_postln.launches = 0
 fused_mlp_postln_dropout.launches = 0
