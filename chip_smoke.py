@@ -23,6 +23,19 @@ Phases, in order; any failure raises and exits non-zero:
    and shifted, K2-K4 at the path's shapes; then the path itself through
    make_embed_eval_step + run_retrieval_eval, its launch counts, and the
    plain path on the same batches (cosine per row, clips/s, peak memory);
+5c. the spatial block path and the other attention routes of
+   SwinConfig.attention_impl / long_attn, each a retrieval eval against its
+   plain path on the same weights and clips (launches, cosine per row,
+   clips/s, peak memory): E8H, the 8-frame eval with attention_impl='pallas'
+   (K9, the head-major attention with fp32 bias and mask, in every block);
+   E8S, 'pallas_fused' (every stage spatial, K10 on the qkv grid in every
+   block); E8P, B=4 clips of 8 x 256^2 whose every stage pads (token dims
+   (4, 64, 64) ... (4, 8, 8)), under both; E32L, the 32-frame eval with
+   fused_attn='off' and long_attn 'v7' (K11 on the flat qkv) and 'v6' (K11
+   head-major after a relayout) in every block. First K9, K10 and K11
+   against their plain versions at those paths' shapes, every stage,
+   unshifted and shifted, with SDPA's time on the same q, k, v (and, with
+   --profile, each path's forwards traced);
 6. hold each train kernel (K1 at the 12-frame window, K5, K2's stash form)
    against its plain version at the shapes of the finetune step (B=16 clips
    of 12 x 224^2, L=30), and time both;
@@ -74,7 +87,8 @@ Bounds: the larger of the bytes the function must move (each input read
 once, each output written once) over 3.35 TB/s and its matrix products over
 989 TFLOP/s bf16 (K4: its fp32 arithmetic over 67 TFLOP/s), per call at the
 path's shapes, summed with the call counts. The softmax's exponentials are
-not counted.
+not counted. K9 and K10 read the fp32 bias and, in shifted blocks, the fp32
+mask (nW distinct N x N tiles); K11 the bf16 bias and the region ids.
 
 Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 """
@@ -104,7 +118,8 @@ TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 
        # same values rounded to bf16 (checked), and rstd's below an eps of
        # 1e-6 for 1e-5 at unit variance (~4.5e-6)
        "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6),
-       "K3M": (2e-2, 2e-2), "K2T": (2e-2, 2e-2), "K7": (2e-2, 2e-2), "K8a": (2e-2, 2e-2)}
+       "K3M": (2e-2, 2e-2), "K2T": (2e-2, 2e-2), "K7": (2e-2, 2e-2), "K8a": (2e-2, 2e-2),
+       "K9": (2e-2, 1e-2), "K10": (2e-2, 1e-2), "K11": (2e-2, 1e-2), "K11h": (2e-2, 1e-2)}
 # the 32-frame retrieval eval (bench.py's BENCH_FRAMES=32, B=32): every
 # Swin block at N=392 through the fused half-block K6
 T32, N32_BATCHES = 32, 2
@@ -120,11 +135,9 @@ TRAIN_STEPS = 5
 # kernel launches per train step: at 12 frames the attention half is K1
 # forward, K5 backward; at 32 (N=392) K6 forward, its backward's recompute
 # K1 and K5; K2's stash form in every block; LayerNorm and the BERT FFN plain
-_NO_RECOMPUTE = {"K2T": 0, "K7": 0, "K8a": 0, "K8b": 0}
-TRAIN_LAUNCHES = {TT: {"K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0, "K6": 0,
-                       "K3M": 0, **_NO_RECOMPUTE},
-                  T32: {"K6": 24, "K1": 24, "K5": 24, "K2S": 24, "K2": 0, "K3": 0, "K4": 0,
-                        "K3M": 0, **_NO_RECOMPUTE}}
+# (here and in every launch table below, a kernel not named is launched 0 times)
+TRAIN_LAUNCHES = {TT: {"K1": 24, "K5": 24, "K2S": 24},
+                  T32: {"K6": 24, "K1": 24, "K5": 24, "K2S": 24}}
 OPTIM = dict(base_lr=1.2e-5, total_steps=1000, warmup_steps=10)
 GRAD_CLIP = 15.0
 # kernel path vs plain path at train step 1 (same weights, batch and dropout
@@ -141,8 +154,7 @@ TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_COS_MIN = 5e-3, 5e-3, 0.995
 PB, PT = 8, 8
 PRETRAIN_ROWS = 2 * PB * (PT // 2 * 49 + L)
 PRETRAIN_OPTIM = dict(base_lr=5e-5, total_steps=1000, warmup_steps=10)
-PRETRAIN_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24, "K3M": 3, "K2": 0, "K3": 0, "K4": 0,
-                     "K6": 0, **_NO_RECOMPUTE}
+PRETRAIN_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24, "K3M": 3}
 # the TPU's 32-frame pretrain recipe (bench.py's BENCH_FRAMES=32 BENCH_REMAT=0,1,
 # tools/hbm_audit.py's 32f-B8-remat01): B=8 clips of 32 x 224^2, the blocks of
 # stages 0-1 rematerialised, the MLP stash off, every Swin MLP backward through
@@ -150,20 +162,34 @@ PRETRAIN_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24, "K3M": 3, "K2": 0, "K3": 0, 
 # half, again in the 4 recomputed blocks; the fusion tower at 16 latent frames
 # takes 16 x (16*49 + 30) = 13024 rows through K3M
 PT32 = 32
-PRETRAIN32_LAUNCHES = {"K6": 28, "K1": 24, "K5": 24, "K2T": 28, "K2S": 0, "K7": 24, "K8a": 0,
-                       "K8b": 0, "K3M": 3, "K2": 0, "K3": 0, "K4": 0}
+PRETRAIN32_LAUNCHES = {"K6": 28, "K1": 24, "K5": 24, "K2T": 28, "K7": 24, "K3M": 3}
 # the pair's path: the 8-frame pretrain step with the erf GELU, every Swin
 # stage rematerialised, the stash off, mlp_bwd='pair' (K8a then K8b); K1 runs
 # in each block's forward and again in its recompute
 PRETRAIN_ERF_STEPS = 3
-PRETRAIN_ERF_LAUNCHES = {"K6": 0, "K1": 48, "K5": 24, "K2T": 48, "K2S": 0, "K7": 0, "K8a": 24,
-                         "K8b": 24, "K3M": 3, "K2": 0, "K3": 0, "K4": 0}
+PRETRAIN_ERF_LAUNCHES = {"K1": 48, "K5": 24, "K2T": 48, "K8a": 24, "K8b": 24, "K3M": 3}
 # the recompute backward's fp32 outputs (dln_w, dln_b, dW1, db1, dW2, db2,
 # drs) against the plain version run in fp32 on the same inputs: the kernel
 # keeps z and dh in fp32 where the plain version rounds them to bf16, so each
 # output's max error must be at most 1.5x the bf16 plain version's plus 1e-6
 # of max|reference|, and its cosine with the plain version at least 0.9999
 BWD_ERR_RATIO, BWD_ERR_FLOOR, BWD_COS_MIN = 1.5, 1e-6, 0.9999
+# the spatial / long-window eval paths (phase 5c): SwinConfig fields, clips
+# per batch, frames, clip size, batches, kernel launches per forward besides
+# K2 24, K3 12, K4 42, the embedding cosine bound
+PB8, PS = 4, 256
+EVAL_COMMON = {"K2": 24, "K3": 12, "K4": 42}
+SPATIAL_PATHS = {
+    "E8H": (dict(attention_impl="pallas"), B, T, S, N_BATCHES, {"K9": 24}, COS_MIN),
+    "E8S": (dict(attention_impl="pallas_fused"), B, T, S, N_BATCHES, {"K10": 24}, COS_MIN),
+    "E8P-pallas": (dict(attention_impl="pallas"), PB8, T, PS, N_BATCHES, {"K9": 24}, COS_MIN),
+    "E8P-pallas_fused": (dict(attention_impl="pallas_fused"), PB8, T, PS, N_BATCHES,
+                         {"K10": 24}, COS_MIN),
+    "E32L-v7": (dict(fused_attn="off", long_attn="v7"), B, T32, S, N32_BATCHES, {"K11": 24},
+                COS32_MIN),
+    "E32L-v6": (dict(fused_attn="off", long_attn="v6"), B, T32, S, N32_BATCHES, {"K11h": 24},
+                COS32_MIN),
+}
 PRETRAIN_LOSSES = ("mlm_loss", "nce_loss", "rank_t_tm_loss", "v_nce_loss", "rank_v_vm_loss")
 
 
@@ -235,14 +261,15 @@ def bound_ms(flops=0.0, nbytes=0.0, fp32_ops=0.0):
     return ((flops / PEAK_BF16 + fp32_ops / PEAK_FP32) * 1e3, nbytes / PEAK_BYTES * 1e3)
 
 
-def attention_work(Bn, N, nH, ids, products=2, row_widths=4, dbias=False):
+def attention_work(Bn, N, nH, ids, products=2, row_widths=4, dbias=False, bias_bytes=4,
+                   mask_bytes=0):
     """Window attention's bound: ``products`` N x N x 32 matrix products per
     (window, head); ``row_widths`` x C bf16 activations per token (K1: qkv
-    in, out; K5: qkv and g in, dqkv out); the fp32 bias (and dbias), the
-    region ids."""
+    in, out; K5: qkv and g in, dqkv out); the bias at ``bias_bytes`` an
+    entry (and the fp32 dbias), the region ids, ``mask_bytes`` of mask."""
     C = nH * 32
-    nbytes = (Bn * N * row_widths * C * 2 + nH * N * N * 4 * (2 if dbias else 1)
-              + (0 if ids is None else ids.size * 4))
+    nbytes = (Bn * N * row_widths * C * 2 + nH * N * N * (bias_bytes + (4 if dbias else 0))
+              + (0 if ids is None else ids.size * 4) + mask_bytes)
     return bound_ms(flops=products * 2 * Bn * nH * N * N * 32, nbytes=nbytes)
 
 
@@ -279,6 +306,120 @@ def sdpa_ms(qkv, bias, nH, N, scale, reps, grad=None):
     g = grad.view(Bn, N, nH, 32).permute(0, 2, 1, 3)
     return cuda_ms(lambda: torch.autograd.grad(out, (q, k, v, mask), g, retain_graph=True),
                    reps)
+
+
+def sdpa_heads_ms(q, k, v, bias, mask, scale, reps):
+    """One F.scaled_dot_product_attention call on head-major q, k, v (Bn,
+    nH, N, 32) with bias + mask as one float mask: window b's (nW, nH) pair
+    is a head of a (Bn / nW, nW * nH) batch, so the (nW, nH, N, N) mask
+    broadcasts as the kernels read it."""
+    import torch.nn.functional as F
+
+    Bn, nH, N, hd = q.shape
+    nW = 1 if mask is None else mask.shape[0]
+    fm = bias[None] if mask is None else bias[None] + mask[:, None]
+    fm = fm.to(q.dtype).reshape(1, nW * nH, N, N)
+    q4, k4, v4 = (t.view(Bn // nW, nW * nH, N, hd) for t in (q, k, v))
+    return cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=fm, scale=scale),
+                   reps)
+
+
+def spatial_shapes(sw, clips, frames, size):
+    """The attention calls of one eval forward on the spatial / flat paths
+    of B=``clips`` clips of ``frames`` x ``size``^2: [(stage, padded dims,
+    window, shift or None, heads, calls)] per stage, unshifted and shifted
+    (the padded dims are the token dims rounded up to whole windows)."""
+    from clover_tpu_torch.models.swin3d import effective_window
+
+    dims = (frames // sw.patch_size[0], size // sw.patch_size[1], size // sw.patch_size[2])
+    shift = tuple(w // 2 for w in sw.window_size)
+    out = []
+    for i, depth in enumerate(sw.depths):
+        window, sh = effective_window(dims, sw.window_size, shift)
+        padded = tuple(-(-d // w) * w for d, w in zip(dims, window))
+        n_shifted = depth // 2 if any(sh) else 0
+        out.append((i, padded, window, None, sw.num_heads[i], depth - n_shifted))
+        if n_shifted:
+            out.append((i, padded, window, sh, sw.num_heads[i], n_shifted))
+        dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
+    return out
+
+
+def spatial_kernel_phase(sw, dev, seed=SEED + 11):
+    """K9, K10 and K11 against their plain versions at the shapes of the
+    phase-5c paths (every stage, unshifted and shifted), bf16, with the
+    bound and SDPA's time on the same q, k, v (bias + mask as a float mask;
+    K11: bias + the region mask). -> {path: results}, times per forward."""
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.models.swin3d import _shift_region_ids, shift_attn_mask
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    scale = 32 ** -0.5
+    out = {}
+    for path, (clips, frames, size, keys) in {
+            "E8H": (B, T, S, ("K9",)), "E8S": (B, T, S, ("K10",)),
+            "E8P": (PB8, T, PS, ("K9", "K10")), "E32L": (B, T32, S, ("K11", "K11h"))}.items():
+        results = out.setdefault(path, {})
+        record = recorder(results, "forward")
+        for stage, padded, window, shift, nH, count in spatial_shapes(sw, clips, frames, size):
+            N = int(np.prod(window))
+            grid = tuple(p // w for p, w in zip(padded, window))
+            Bn = clips * int(np.prod(grid))
+            label = (f"stage {stage} B={clips} grid={padded} Bn={Bn} N={N} nH={nH} "
+                     f"mask={'yes' if shift else 'no'}")
+            bias = randn(nH, N, N, dtype=torch.float32)
+            if "K11" in keys:
+                ids = None if shift is None else _shift_region_ids(padded, window, shift)
+                rid = None if ids is None else torch.from_numpy(ids).to(dev)
+                qkv = randn(Bn * N, 3 * nH * 32)
+                q, k, v = ops.window_attention.heads_from_flat(qkv, nH, N)
+                fm = None if rid is None else ops.window_attention.region_mask(rid, torch.float32)
+                lib = sdpa_heads_ms(q, k, v, bias.bfloat16().float(), fm, scale, 3)
+                p = lambda: ops.window_attention_flat_flash_plain(   # noqa: E731
+                    qkv, bias, rid, scale, nH, N)
+                ref, t_p = p(), cuda_ms(p, 2)
+                work = attention_work(Bn, N, nH, ids, bias_bytes=2)
+                for key, name, fn in (
+                        ("K11", "flat_flash_window_attention",
+                         lambda: ops.flat_flash_window_attention(qkv, bias, rid, scale, nH, N)),
+                        ("K11h", "flash_window_attention",
+                         lambda: ops.flash_window_attention(q, k, v, bias, rid, scale))):
+                    got = fn()
+                    got = got if key == "K11" else ops.window_attention.flat_from_heads(got)
+                    record(key, name, label, got, ref, cuda_ms(fn, 3), t_p, count, work=work,
+                           lib=lib)
+                del qkv, q, k, v, ref
+                continue
+            mask = None if shift is None else torch.from_numpy(
+                shift_attn_mask(padded, window, shift)).to(dev)
+            work = attention_work(Bn, N, nH, None,
+                                  mask_bytes=0 if mask is None else mask.numel() * 4)
+            qkv5 = randn(clips, *padded, 3, nH, 32)
+            q, k, v = (t.contiguous() for t in ops.window_attention.spatial_heads(qkv5, window))
+            lib = sdpa_heads_ms(q, k, v, bias, mask, scale, 3)
+            if "K9" in keys:
+                kf = lambda: ops.fused_window_attention(q, k, v, bias, mask, scale)   # noqa: E731
+                pf = lambda: ops.window_attention_heads_plain(   # noqa: E731
+                    q, k, v, bias, mask, scale)
+                record("K9", "fused_window_attention", label, kf(), pf(), cuda_ms(kf, 3),
+                       cuda_ms(pf, 2), count, work=work, lib=lib)
+            if "K10" in keys:
+                grid_mask = None if mask is None else mask.view(*grid, N, N)
+                kf = lambda: ops.spatial_window_attention(   # noqa: E731
+                    qkv5, bias, grid_mask, window, scale)
+                pf = lambda: ops.spatial_window_attention_plain(   # noqa: E731
+                    qkv5, bias, grid_mask, window, scale)
+                record("K10", "spatial_window_attention", label, kf(), pf(), cuda_ms(kf, 3),
+                       cuda_ms(pf, 2), count, work=work, lib=lib)
+            del qkv5, q, k, v
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernel_phase(cfg, dev, frames=T, seed=SEED):
@@ -726,6 +867,8 @@ def drive_train_path(model, batches, dev, make=make_train_step):
 PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("K6a LN1 + qkv + attention", ("attn_block_attention_kernel",)),
     ("K6b proj + residual", ("attn_block_proj_kernel",)),
+    ("K11 key-tiled window attention", ("flash_window_attention_kernel",)),
+    ("K9 / K10 head-major, grid attention", ("window_attention_heads_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),
     ("K5 window-attention backward", ("window_attention_bwd_kernel", "dbias_finish")),
     ("K3 / K3M post-LN FFN", ("mlp_kernel<32, 768, false>", "postln_finish")),
@@ -810,18 +953,29 @@ def profile_eval_path(model, cfg, batches, dev, wall_ms: float, label: str) -> N
     profile_runs([lambda a=a: step(*a, cache) for a in on_dev], wall_ms, label, "forward")
 
 
-TRAIN_WRAPPERS = ("K1", "K5", "K2S", "K2", "K3", "K4", "K6", "K3M", "K2T", "K7", "K8a", "K8b")
-
-
-def train_wrappers():
+def launch_counts():
+    """Every kernel wrapper's launches since the last reset, by kernel key."""
     from clover_tpu_torch import ops
 
-    return dict(zip(TRAIN_WRAPPERS, (
-        ops.flat2_window_attention, ops.flat2_window_attention_bwd,
-        ops.fused_ln_mlp_residual_stash, ops.fused_ln_mlp_residual, ops.fused_mlp_postln,
-        ops.fused_layer_norm, ops.fused_window_attn_block, ops.fused_mlp_postln_dropout,
-        ops.fused_ln_mlp_residual_train, ops.ln_mlp_residual_bwd_onepass, ops.ln_mlp_bwd_dx,
-        ops.ln_mlp_bwd_dw)))
+    wrappers = {"K1": ops.flat2_window_attention, "K2": ops.fused_ln_mlp_residual,
+                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm,
+                "K5": ops.flat2_window_attention_bwd, "K2S": ops.fused_ln_mlp_residual_stash,
+                "K6": ops.fused_window_attn_block, "K3M": ops.fused_mlp_postln_dropout,
+                "K2T": ops.fused_ln_mlp_residual_train, "K7": ops.ln_mlp_residual_bwd_onepass,
+                "K8a": ops.ln_mlp_bwd_dx, "K8b": ops.ln_mlp_bwd_dw,
+                "K9": ops.fused_window_attention, "K10": ops.spatial_window_attention,
+                "K11": ops.flat_flash_window_attention, "K11h": ops.flash_window_attention}
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def check_launches(tag: str, counts, per_run, runs: int, unit: str) -> None:
+    """Every kernel launched per_run[k] times per forward or step over
+    ``runs`` of them, a kernel not in per_run never."""
+    print(f"{tag} launches over {runs} {unit}s: {counts} (expected per {unit}: {per_run})",
+          flush=True)
+    for k, n in counts.items():
+        want = per_run.get(k, 0) * runs
+        check(n == want, f"{tag} {k}: {n} launches, expected {want}")
 
 
 def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
@@ -844,15 +998,11 @@ def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: st
 
     from clover_tpu_torch import ops
 
-    wrappers = train_wrappers()
     steps = len(batches)
     ops.reset_launch_counts()
     k_metrics, k_grads, k_sec, k_peak = drive_train_path(model, batches, dev, make)
-    counts = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"{tag} launches over {steps} steps: {counts} (expected per step: {per_step})",
-          flush=True)
-    for k, n in per_step.items():
-        check(counts[k] == n * steps, f"{tag} {k}: {counts[k]} launches, expected {n * steps}")
+    counts = launch_counts()
+    check_launches(tag, counts, per_step, steps, "step")
 
     ops.reset_launch_counts()
     p_metrics, p_grads, p_sec, p_peak = drive_train_path(plain, batches, dev, make)
@@ -1018,23 +1168,24 @@ def pretrain_phase(dev, card, profile: bool, cfg=None, frames=PT, launches=PRETR
     return counts
 
 
-def make_batches(cfg, frames_per_clip=T, n_batches=N_BATCHES, seed=SEED):
-    """Seeded host-s2d uint8 clips (B, 1, T/2, 56, 56, 96) and captions of
-    varied length, as the retrieval loader gives them."""
+def make_batches(cfg, frames_per_clip=T, n_batches=N_BATCHES, seed=SEED, clips=B, size=S):
+    """Seeded host-s2d uint8 clips (clips, 1, T/2, size/4, size/4, 96) and
+    captions of varied length, as the retrieval loader gives them."""
     from clover_tpu_torch.ops.preprocess import space_to_depth_host
 
     rng = np.random.default_rng(seed)
     batches = []
     for i in range(n_batches):
-        frames = rng.integers(0, 256, size=(B, frames_per_clip, S, S, 3), dtype=np.uint8)
-        lengths = rng.integers(8, L + 1, size=B)
-        tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(B, L))
+        frames = rng.integers(0, 256, size=(clips, frames_per_clip, size, size, 3),
+                              dtype=np.uint8)
+        lengths = rng.integers(8, L + 1, size=clips)
+        tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(clips, L))
         tok[:, 0] = 101                                   # [CLS]
         mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+        index = np.arange(i * clips, (i + 1) * clips)
         batches.append({
             "imgs": space_to_depth_host(frames, cfg.swin.patch_size)[:, None],
-            "token_ids": tok * mask, "input_mask": mask,
-            "index": np.arange(i * B, (i + 1) * B), "video_index": np.arange(i * B, (i + 1) * B),
+            "token_ids": tok * mask, "input_mask": mask, "index": index, "video_index": index,
         })
     return batches
 
@@ -1047,7 +1198,8 @@ def drive_main_path(model, cfg, batches):
     from clover_tpu_torch.engine import make_embed_eval_step, run_retrieval_eval
     from clover_tpu_torch.models import swin_bias_cache
 
-    dataset = types.SimpleNamespace(text_video_ids=[[i] for i in range(B * len(batches))])
+    n = sum(len(b["index"]) for b in batches)
+    dataset = types.SimpleNamespace(text_video_ids=[[i] for i in range(n)])
     metrics = run_retrieval_eval(
         make_embed_eval_step(model), model, dataset, iter(batches),
         bias_cache=lambda m, dims: swin_bias_cache(m.backbone, cfg.swin, dims))
@@ -1075,7 +1227,7 @@ def timed_embeddings(model, cfg, batches, dev):
         vs.append(v)
         ts.append(t)
     torch.cuda.synchronize()
-    clips_per_s = B * len(on_dev) / (time.perf_counter() - t0)
+    clips_per_s = sum(a[0].shape[0] for a in on_dev) / (time.perf_counter() - t0)
     return torch.cat(vs).float(), torch.cat(ts).float(), clips_per_s
 
 
@@ -1089,19 +1241,11 @@ def eval32_phase(model, plain, cfg, dev, card, profile: bool):
     from clover_tpu_torch import ops
 
     batches = make_batches(cfg, T32, N32_BATCHES, SEED + 3)
-    wrappers = {"K6": ops.fused_window_attn_block, "K1": ops.flat2_window_attention,
-                "K2": ops.fused_ln_mlp_residual, "K3": ops.fused_mlp_postln,
-                "K4": ops.fused_layer_norm, "K5": ops.flat2_window_attention_bwd,
-                "K2S": ops.fused_ln_mlp_residual_stash}
     ops.reset_launch_counts()
     metrics = drive_main_path(model, cfg, batches)
-    counts = {k: fn.launches for k, fn in wrappers.items()}
-    per_forward = {"K6": 24, "K1": 0, "K2": 24, "K3": 12, "K4": 18, "K5": 0, "K2S": 0}
-    print(f"32-frame launches over {N32_BATCHES} forwards: {counts} "
-          f"(expected per forward: {per_forward})", flush=True)
-    for k, n in per_forward.items():
-        check(counts[k] == n * N32_BATCHES,
-              f"32-frame {k}: {counts[k]} launches, expected {n * N32_BATCHES}")
+    counts = launch_counts()
+    check_launches("32-frame", counts, {"K6": 24, "K2": 24, "K3": 12, "K4": 18}, N32_BATCHES,
+                   "forward")
     torch.cuda.reset_peak_memory_stats(dev)
     v, t, cps = timed_embeddings(model, cfg, batches, dev)
     k_peak = torch.cuda.max_memory_allocated(dev)
@@ -1134,6 +1278,64 @@ def eval32_phase(model, plain, cfg, dev, card, profile: bool):
     return counts
 
 
+def spatial_path_phase(path, weights, dev, card, profile: bool):
+    """One phase-5c path (SPATIAL_PATHS): the retrieval eval of Swin-B with
+    the path's SwinConfig fields + BERT-base on ``weights`` (the eval
+    model's state dict: the parameter tree does not depend on the layout),
+    with the kernels and with the plain versions on the same batches;
+    launches per forward, finite embeddings and R@K, cosine per row,
+    clips/s, peak memory; with ``profile``, the kernel path's forwards
+    traced. -> the launch counts of the kernel path's run."""
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.models import BertConfig, CloverFinetune, FinetuneConfig, SwinConfig
+
+    fields, clips, frames, size, n_batches, own, cos_min = SPATIAL_PATHS[path]
+    cfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True, **fields),
+                         text_bert=BertConfig())
+    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True).eval()
+    model.load_state_dict(weights)
+    plain = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=False).eval()
+    plain.load_state_dict(weights)
+    batches = make_batches(cfg, frames, n_batches, SEED + 12, clips, size)
+    shape = f"B={clips}, {frames}x{size}^2, L={L}, {n_batches} batches, forward only"
+
+    ops.reset_launch_counts()
+    metrics = drive_main_path(model, cfg, batches)
+    counts = launch_counts()
+    check_launches(f"{path} {fields}", counts, {**EVAL_COMMON, **own}, n_batches, "forward")
+    torch.cuda.reset_peak_memory_stats(dev)
+    v, t, cps = timed_embeddings(model, cfg, batches, dev)
+    k_peak = torch.cuda.max_memory_allocated(dev)
+    check(v.shape == (clips * n_batches, cfg.vts_embed_dim) and t.shape == v.shape,
+          f"{path} embedding shapes {tuple(v.shape)}, {tuple(t.shape)}")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(t).all()),
+          f"{path}: non-finite embedding")
+    check(set(metrics) >= {"Recall@1", "Recall@5", "Recall@10", "MR"}, f"metrics {metrics}")
+    print(f"{path} kernel path R@K: {metrics}", flush=True)
+
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    pv, pt, p_cps = timed_embeddings(plain, cfg, batches, dev)
+    p_peak = torch.cuda.max_memory_allocated(dev)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), f"the plain {path} path launched a kernel")
+    cos_v = torch.nn.functional.cosine_similarity(v, pv, dim=-1).min().item()
+    cos_t = torch.nn.functional.cosine_similarity(t, pt, dim=-1).min().item()
+    print(f"{path} kernel vs plain embeddings: min cosine video {cos_v:.6f} text {cos_t:.6f} "
+          f"(bound {cos_min})", flush=True)
+    check(cos_v >= cos_min and cos_t >= cos_min,
+          f"{path} kernel path disagrees with the plain path: min cosine video {cos_v:.6f} "
+          f"text {cos_t:.6f}, bound {cos_min}")
+    print(f"{path} clips/s ({shape}): kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels "
+          f"{k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}", flush=True)
+    if profile:
+        profile_eval_path(model, cfg, batches, dev, clips * 1e3 / cps, f"kernel {path} eval path")
+    del model, plain, v, t, pv, pt
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1141,9 +1343,10 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of clover_tpu_torch on one CUDA card.")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the kernel path's 32-frame eval forwards and each path's "
-                         "12- and 32-frame finetune steps and pretrain steps with "
-                         "torch.profiler and print the device time by kernel family")
+                    help="trace the kernel path's 32-frame eval forwards, the forwards of "
+                         "each phase-5c path (E8H, E8S, E8P, E32L) and each path's 12- and "
+                         "32-frame finetune steps and pretrain steps with torch.profiler and "
+                         "print the device time by kernel family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1181,18 +1384,11 @@ def main(argv=None) -> int:
     check(all(p.device == dev for p in model.parameters()), "the model is not on the card")
     batches = make_batches(cfg)
 
-    wrappers = {"K1": ops.flat2_window_attention, "K2": ops.fused_ln_mlp_residual,
-                "K3": ops.fused_mlp_postln, "K4": ops.fused_layer_norm,
-                "K6": ops.fused_window_attn_block}
     ops.reset_launch_counts()
     metrics = drive_main_path(model, cfg, batches)
-    counts = {k: fn.launches for k, fn in wrappers.items()}
-    per_forward = {"K1": 24, "K2": 24, "K3": 12, "K4": 42, "K6": 0}
-    print(f"launches over {N_BATCHES} forwards: {counts} "
-          f"(expected per forward: {per_forward})", flush=True)
-    for k, n in per_forward.items():
-        check(counts[k] == n * N_BATCHES,
-              f"{k}: {counts[k]} launches, expected {n * N_BATCHES}")
+    counts = launch_counts()
+    check_launches("8-frame", counts, {"K1": 24, "K2": 24, "K3": 12, "K4": 42}, N_BATCHES,
+                   "forward")
     v, t, cps = timed_embeddings(model, cfg, batches, dev)
     check(v.shape == (B * N_BATCHES, cfg.vts_embed_dim) and t.shape == v.shape,
           f"embedding shapes {tuple(v.shape)}, {tuple(t.shape)}")
@@ -1219,6 +1415,14 @@ def main(argv=None) -> int:
     del v, t, pv, pt
     results32 = kernel_phase(cfg, dev, T32, SEED + 3)
     counts32 = eval32_phase(model, plain, cfg, dev, card, profile)
+
+    # the spatial block path and the attention_impl / long_attn routes, on
+    # the eval model's weights
+    spatial = spatial_kernel_phase(cfg.swin, dev)
+    weights = model.state_dict()
+    spatial_counts = {path: spatial_path_phase(path, weights, dev, card, profile)
+                      for path in SPATIAL_PATHS}
+    del weights
 
     # the finetune step; the eval models' weights are still the seeded ones
     train = {}
@@ -1284,6 +1488,19 @@ def main(argv=None) -> int:
     rows += [(k, results32, counts32,
               f"eval32, ms per forward, launches over {N32_BATCHES} forwards", sources)
              for k in ("K6", "K2", "K3", "K4")]
+    # K9 stands for #8 (v2, the 'pallas' default) on E8H and for #7 (v1) on
+    # E8P; K11 for #11 on the flat qkv and, head-major, for #10
+    heads = "csrc/window_attention_heads.cu"
+    wa_py = "clover_tpu/ops/window_attention.py"
+    rows += [(k, spatial[path], spatial_counts[run],
+              f"{path} ({run}), ms per forward, launches over "
+              f"{SPATIAL_PATHS[run][4]} forwards", {k: (src, f"{wa_py}:{line}")})
+             for k, path, run, src, line in (
+                 ("K9", "E8H", "E8H", heads, 181), ("K10", "E8S", "E8S", heads, 336),
+                 ("K9", "E8P", "E8P-pallas", heads, 232),
+                 ("K10", "E8P", "E8P-pallas_fused", heads, 336),
+                 ("K11", "E32L", "E32L-v7", "csrc/window_attention_flash.cu", 1610),
+                 ("K11h", "E32L", "E32L-v6", "csrc/window_attention_flash.cu", 1445))]
     rows += [(k, train, train_counts,
               f"train, ms per step, launches over {TRAIN_STEPS} steps", sources)
              for k in ("K1", "K5", "K2S")]

@@ -1,8 +1,14 @@
 // Device code of one 16-row query strip of window attention, head dim 32:
 // softmax(scale * q k^T + bias [- 100 * (id_q != id_k)]) v, with q, k, v of
 // one (window, head) staged in shared memory (Np = 16 * KT rows, zero
-// padded, row stride kLd). Shared by K1 (window_attention.cu) and K6's
-// attention pass (attn_block.cu).
+// padded, row stride kLd). Shared by K1 (window_attention.cu), K6's
+// attention pass (attn_block.cu), K9 / K10 (window_attention_heads.cu) and,
+// its logits / exp / P.V steps on one key tile, K11
+// (window_attention_flash.cu). What is added to the scaled logits is a
+// template parameter ("terms": add(n-tile, l[4])), and so is where a strip's
+// output rows go ("out": row(q)): K1's bias in accumulator order and region
+// ids (RegionTerms), K9 / K10's fp32 bias and fp32 additive mask
+// (DenseTerms), K11's bf16 bias and region ids on a key tile.
 //
 // A warp keeps its strip's 16 x Np logits in mma.sync (m16n8k16, bf16 in,
 // fp32 accumulate) accumulators: a thread holds two rows, so the row max
@@ -24,16 +30,107 @@ namespace wa {
 constexpr int kHd = 32;
 constexpr int kLd = kHd + 8;  // row stride of the staged q/k/v: no ldmatrix bank conflicts
 
+// K1's terms of strip s: the head's bias in accumulator order (-inf in the
+// padded keys; bias_s is this lane's entry of n-tile 0) and, for shifted
+// blocks, -100 where a key's region id (id_s, shared memory) is not the row's
+struct RegionTerms {
+  const uint2* bias_s;
+  const int* id_s;
+  bool masked;
+  int id0, id1, tq;  // region ids of this lane's rows q0, q1; its column pair
+  __device__ __forceinline__ void add(int nt, float (&l)[4]) const {
+    const uint2 bv = bias_s[nt * 32];  // rows q0, q1 x keys k, k+1
+    const float2 bq0 = bf16x2_to_float2(bv.x), bq1 = bf16x2_to_float2(bv.y);
+    l[0] += bq0.x, l[1] += bq0.y, l[2] += bq1.x, l[3] += bq1.y;
+    if (masked) {
+      const int2 idk = *reinterpret_cast<const int2*>(id_s + nt * 8 + tq * 2);
+      if (idk.x != id0) l[0] -= 100.f;
+      if (idk.y != id0) l[1] -= 100.f;
+      if (idk.x != id1) l[2] -= 100.f;
+      if (idk.y != id1) l[3] -= 100.f;
+    }
+  }
+};
+
+// K9 / K10's terms: the head's fp32 bias and the window's fp32 additive mask
+// read from device memory (rows q0, q1 clamped to N - 1: padded rows are
+// never stored), -inf past N keys
+struct DenseTerms {
+  const float* b0;
+  const float* b1;
+  const float* m0;  // nullptr: unshifted block
+  const float* m1;
+  int N, tq;
+  __device__ __forceinline__ void add(int nt, float (&l)[4]) const {
+    const int k = nt * 8 + tq * 2;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (k + e < N) {
+        l[e] += __ldg(b0 + k + e);
+        l[2 + e] += __ldg(b1 + k + e);
+        if (m0 != nullptr) {
+          l[e] += __ldg(m0 + k + e);
+          l[2 + e] += __ldg(m1 + k + e);
+        }
+      } else {
+        l[e] = -INFINITY, l[2 + e] = -INFINITY;
+      }
+    }
+  }
+};
+
+// Where the rows of one (window, head) live, as element offsets of the
+// head's column 0: in(r) in the q / k / v tensors, out(r) in the output.
+// K9 and K11's head-major layout, (Bn, nH, N, 32) q, k, v and out.
+struct HeadRows {
+  long base;  // ((b * nH + h) * N) * 32
+  __device__ __forceinline__ long in(int r) const { return base + long(r) * kHd; }
+  __device__ __forceinline__ long out(int r) const { return in(r); }
+};
+
+// K11's flat layout: (Bn*N, 3C) qkv rows (k at +C, v at +2C), (Bn*N, C) out
+struct FlatRows {
+  long row0;  // b * N
+  int C, h;
+  __device__ __forceinline__ long in(int r) const { return (row0 + r) * 3 * C + h * kHd; }
+  __device__ __forceinline__ long out(int r) const { return (row0 + r) * C + h * kHd; }
+};
+
+// K10: token r = (td, th, tw) of a window whose corner token is `corner` in
+// a (B, Dp, Hp, Wp) grid of 3C-wide qkv rows (k at +C, v at +2C) and C-wide
+// output rows
+struct GridRows {
+  long corner;
+  int Hp, Wp, wh, ww, C, h;
+  __device__ __forceinline__ long token(int r) const {
+    const int td = r / (wh * ww), rem = r - td * (wh * ww), th = rem / ww;
+    return corner + (long(td) * Hp + th) * Wp + (rem - th * ww);
+  }
+  __device__ __forceinline__ long in(int r) const { return token(r) * 3 * C + h * kHd; }
+  __device__ __forceinline__ long out(int r) const { return token(r) * C + h * kHd; }
+};
+
+// a strip's output rows: out + rows.out(q) (K1 and K6: RowStride)
+template <class Rows>
+struct OutRows {
+  bf16* out;
+  Rows rows;
+  __device__ __forceinline__ bf16* row(int q) const { return out + rows.out(q); }
+};
+
+struct RowStride {
+  bf16* base;
+  int ld;
+  __device__ __forceinline__ bf16* row(int q) const { return base + long(q) * ld; }
+};
+
 // Logits of n-tiles [nt0, nt0 + NTH) (8 keys each) of one 16-row query
-// strip: scale * q k^T + bias (+ region mask), and this lane's maxima of
-// its two rows over them.
-template <int NTH>
+// strip: scale * q k^T + terms, and this lane's maxima of its two rows
+// over them.
+template <int NTH, class Terms>
 __device__ __forceinline__ void strip_logits(float (&sc)[NTH][4], const unsigned (&qa)[2][4],
-                                             const bf16* ks, const uint2* bias_s,
-                                             const int* id_s, bool masked, int id0, int id1,
-                                             int nt0, int lane, float scale, float& m0,
-                                             float& m1) {
-  const int tq = lane & 3;
+                                             const bf16* ks, const Terms& terms, int nt0,
+                                             int lane, float scale, float& m0, float& m1) {
 #pragma unroll
   for (int i = 0; i < NTH; ++i) {
     unsigned kb[4];  // hd 0-7, 8-15, 16-23, 24-31 of keys nt*8 + lane % 8
@@ -45,17 +142,8 @@ __device__ __forceinline__ void strip_logits(float (&sc)[NTH][4], const unsigned
   m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
   for (int i = 0; i < NTH; ++i) {
-    const uint2 bv = bias_s[(nt0 + i) * 32];  // rows q0, q1 x keys k, k+1
-    const float2 bq0 = bf16x2_to_float2(bv.x), bq1 = bf16x2_to_float2(bv.y);
-    float l[4] = {sc[i][0] * scale + bq0.x, sc[i][1] * scale + bq0.y,
-                  sc[i][2] * scale + bq1.x, sc[i][3] * scale + bq1.y};
-    if (masked) {
-      const int2 idk = *reinterpret_cast<const int2*>(id_s + (nt0 + i) * 8 + tq * 2);
-      if (idk.x != id0) l[0] -= 100.f;
-      if (idk.y != id0) l[1] -= 100.f;
-      if (idk.x != id1) l[2] -= 100.f;
-      if (idk.y != id1) l[3] -= 100.f;
-    }
+    float l[4] = {sc[i][0] * scale, sc[i][1] * scale, sc[i][2] * scale, sc[i][3] * scale};
+    terms.add(nt0 + i, l);
 #pragma unroll
     for (int e = 0; e < 4; ++e) sc[i][e] = l[e];
     m0 = fmaxf(m0, fmaxf(l[0], l[1]));
@@ -109,22 +197,20 @@ constexpr int kStripParts = KT <= 16 ? 1 : (KT + 9) / 10;
 
 // part p of P of the key steps (the first parts take the remainder), with
 // the running row max m and sum carried from the parts before it
-template <int KT, int P, int p>
+template <int KT, int P, int p, class Terms>
 __device__ __forceinline__ void strip_part(float (&o)[4][4], const unsigned (&qa)[2][4],
-                                           const bf16* ks, const bf16* vs, const uint2* bias_s,
-                                           const int* id_s, bool masked, int id0, int id1,
+                                           const bf16* ks, const bf16* vs, const Terms& terms,
                                            int lane, float scale, float& m0, float& m1,
                                            float& sum0, float& sum1) {
   constexpr int J0 = (p * KT + P - 1) / P, KS = ((p + 1) * KT + P - 1) / P - J0;
   float sc[2 * KS][4];
   if constexpr (p == 0) {
-    strip_logits<2 * KS>(sc, qa, ks, bias_s, id_s, masked, id0, id1, 0, lane, scale, m0, m1);
+    strip_logits<2 * KS>(sc, qa, ks, terms, 0, lane, scale, m0, m1);
     m0 = quad_max(m0), m1 = quad_max(m1);
     strip_exp<2 * KS>(sc, m0, m1, sum0, sum1);
   } else {
     float n0, n1, t0, t1;
-    strip_logits<2 * KS>(sc, qa, ks, bias_s, id_s, masked, id0, id1, 2 * J0, lane, scale, n0,
-                         n1);
+    strip_logits<2 * KS>(sc, qa, ks, terms, 2 * J0, lane, scale, n0, n1);
     n0 = fmaxf(m0, quad_max(n0)), n1 = fmaxf(m1, quad_max(n1));
     const float f0 = __expf(m0 - n0), f1 = __expf(m1 - n1);
 #pragma unroll
@@ -135,21 +221,17 @@ __device__ __forceinline__ void strip_part(float (&o)[4][4], const unsigned (&qa
   }
   strip_pv<KS>(o, sc, 1.f, 1.f, vs, J0, lane);
   if constexpr (p + 1 < P) {
-    strip_part<KT, P, p + 1>(o, qa, ks, vs, bias_s, id_s, masked, id0, id1, lane, scale, m0, m1,
-                             sum0, sum1);
+    strip_part<KT, P, p + 1>(o, qa, ks, vs, terms, lane, scale, m0, m1, sum0, sum1);
   }
 }
 
 // Strip s (rows s*16 .. s*16+15) of one (window, head): the staged q, k, v
-// (qs, ks, vs), the head's bias in accumulator order (bias_h), the window's
-// region ids in shared memory (id_s, read only when masked). Rows < N are
-// written to out_b (the head's column 0 of the window's row 0) at row
-// stride ldo.
-template <int KT>
-__device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, const bf16* vs,
-                                             const uint2* bias_h, const int* id_s, bool masked,
-                                             int s, int lane, int N, float scale, bf16* out_b,
-                                             int ldo) {
+// (qs, ks, vs) and the terms of the strip's logits; rows < N are written
+// to out.row(q).
+template <int KT, class Terms, class Out>
+__device__ __forceinline__ void attend_strip_with(const bf16* qs, const bf16* ks, const bf16* vs,
+                                                  const Terms& terms, int s, int lane, int N,
+                                                  float scale, const Out& out) {
   constexpr int NT = 2 * KT;  // 8-key n-tiles
   const int g = lane >> 2, tq = lane & 3;  // accumulator row / column pair of this lane
   unsigned qa[2][4];
@@ -157,8 +239,6 @@ __device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, con
   ldmatrix_x4(qa[1], a_tile_row(qs + s * 16 * kLd + 16, kLd, lane));
   // this lane holds rows q0 = s*16 + g and q1 = q0 + 8
   const int q0 = s * 16 + g, q1 = q0 + 8;
-  const uint2* bias_s = bias_h + (long)s * NT * 32 + lane;
-  const int id0 = masked ? id_s[q0] : 0, id1 = masked ? id_s[q1] : 0;
   float o[4][4];
 #pragma unroll
   for (int d = 0; d < 4; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -166,7 +246,7 @@ __device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, con
   if constexpr (KT <= 16) {
     // one pass: the strip's whole 16 x Np logits in registers
     float sc[NT][4], m0, m1;
-    strip_logits<NT>(sc, qa, ks, bias_s, id_s, masked, id0, id1, 0, lane, scale, m0, m1);
+    strip_logits<NT>(sc, qa, ks, terms, 0, lane, scale, m0, m1);
     float sum0, sum1;
     strip_exp<NT>(sc, quad_max(m0), quad_max(m1), sum0, sum1);
     inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
@@ -174,22 +254,34 @@ __device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, con
     inv0 = inv1 = 1.f;
   } else {
     float m0, m1, sum0, sum1;
-    strip_part<KT, kStripParts<KT>, 0>(o, qa, ks, vs, bias_s, id_s, masked, id0, id1, lane,
-                                         scale, m0, m1, sum0, sum1);
+    strip_part<KT, kStripParts<KT>, 0>(o, qa, ks, vs, terms, lane, scale, m0, m1, sum0, sum1);
     inv0 = 1.f / quad_sum(sum0), inv1 = 1.f / quad_sum(sum1);
   }
 #pragma unroll
   for (int d = 0; d < 4; ++d) {
     const int col = d * 8 + tq * 2;
     if (q0 < N) {
-      *reinterpret_cast<unsigned*>(out_b + (long)q0 * ldo + col) =
-          pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
+      *reinterpret_cast<unsigned*>(out.row(q0) + col) = pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
     }
     if (q1 < N) {
-      *reinterpret_cast<unsigned*>(out_b + (long)q1 * ldo + col) =
-          pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
+      *reinterpret_cast<unsigned*>(out.row(q1) + col) = pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
     }
   }
+}
+
+// K1 and K6: strip s with the head's bias in accumulator order (bias_h) and
+// the window's region ids in shared memory (id_s, read only when masked);
+// rows < N are written to out_b (the head's column 0 of the window's row 0)
+// at row stride ldo.
+template <int KT>
+__device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, const bf16* vs,
+                                             const uint2* bias_h, const int* id_s, bool masked,
+                                             int s, int lane, int N, float scale, bf16* out_b,
+                                             int ldo) {
+  const int q0 = s * 16 + (lane >> 2);
+  const RegionTerms terms{bias_h + long(s) * 2 * KT * 32 + lane, id_s, masked,
+                          masked ? id_s[q0] : 0, masked ? id_s[q0 + 8] : 0, lane & 3};
+  attend_strip_with<KT>(qs, ks, vs, terms, s, lane, N, scale, RowStride{out_b, ldo});
 }
 
 }  // namespace wa

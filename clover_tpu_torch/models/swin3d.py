@@ -6,8 +6,13 @@ normalization folded into the patch embed (or the raw clip, put through
 space-to-depth on the device: ``embed_impl`` 's2d' / 'conv'), the SimMIM
 mask token and the embed / encode split of the pretrain step,
 window-resident stages (activations stay partitioned into
-windows for a whole stage; a shifted block permutes tokens in and out), the
-flat window attention (kernel K1, its backward K5), the fused
+windows for a whole stage; a shifted block permutes tokens in and out) and
+the spatial block path (LN1, pad, roll, partition, attention, reverse, roll
+back, crop: stages whose dims do not divide the window, or
+``window_resident=False``), the attention routes of ``attention_impl``
+(the flat window attention, kernel K1 with its backward K5, or K11 for long
+windows under ``long_attn``; K9 on the head layout; K10 on the padded
+spatial grid; the plain 'xla_headloop' / 'xla' math), the fused
 LN2+MLP+residual half (kernel K2; in training its stash form), the
 forward-only LayerNorm sites (kernel K4, eval only) and, at large windows
 (``SwinConfig.fused_attn``), the fused LN1+attention+proj+residual half
@@ -44,15 +49,23 @@ from clover_tpu_torch.ops.mlp_block import (
     ln_mlp_residual_plain,
 )
 from clover_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
-from clover_tpu_torch.ops.window_attention import WindowAttentionFn
+from clover_tpu_torch.ops.window_attention import (
+    HeadsWindowAttentionFn,
+    SpatialWindowAttentionFn,
+    WindowAttentionFn,
+    flat_from_heads,
+    heads_from_flat,
+)
 
 Tuple3 = Tuple[int, int, int]
+ATTENTION_IMPLS = ("auto", "pallas_flat", "pallas", "pallas_fused", "xla_headloop", "xla")
+LONG_ATTN_N = 384   # long_attn's windows: the 32-frame 8x7x7 (N=392), as fused_attn 'auto'
 
 
 @dataclasses.dataclass(frozen=True)
 class SwinConfig:
     """The fields of ``clover_tpu.models.swin3d.SwinConfig`` the port reads.
-    The stages are window-resident. ``embed_impl``: 'host_s2d' (the port's
+    ``embed_impl``: 'host_s2d' (the port's
     default) takes clips space-to-depth'd on the host; 's2d' and 'conv' (the
     JAX default) take the raw (B, T, H, W, 3) clip and compute the same
     patch-embed GEMM after a space-to-depth on the device (the JAX 'conv'
@@ -88,6 +101,21 @@ class SwinConfig:
     # K8a + K8b (the JAX CLOVER_MLP_BWD=1; erf GELU only)
     mlp_stash: bool = True
     mlp_bwd: str = "xla"
+    # the window attention: 'auto' is the port's route, the TPU's
+    # 'pallas_flat' (K1 on the flat qkv; K6 where fused_attn picks it);
+    # 'pallas' K9 on the (Bn, nH, N, hd) head layout (K6 where fused_attn
+    # picks it); 'pallas_fused' K10 on the padded qkv grid, every stage on
+    # the spatial path; 'xla_headloop' / 'xla' plain PyTorch (XLA in the JAX
+    # package): a loop over the heads of the flat qkv, one product on the
+    # head layout. The JAX 'fused_block' (K6 on the spatial path) is not
+    # ported yet
+    attention_impl: str = "auto"
+    # a stage whose dims divide the window keeps its activations partitioned
+    # into windows (not under 'pallas_fused'); False: every stage spatial
+    window_resident: bool = True
+    # windows of N >= 384 on the flat route: 'off' K1, 'v7' K11 on the flat
+    # qkv, 'v6' K11 head-major after a relayout (the JAX CLOVER_WA_LONG)
+    long_attn: str = "off"
 
     def __post_init__(self):
         if self.fused_attn not in ("auto", "on", "off"):
@@ -103,6 +131,20 @@ class SwinConfig:
         if not isinstance(self.use_checkpoint, (bool, tuple, list)):
             raise ValueError(f"use_checkpoint must be a bool or a tuple of stage ids, "
                              f"got {self.use_checkpoint!r}")
+        if self.attention_impl == "fused_block":
+            raise ValueError("attention_impl='fused_block' (K6 on the spatial path) is not "
+                             "ported yet: ROADMAP.md Queue 1 item 4")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
+                             f"got {self.attention_impl!r}")
+        if self.long_attn not in ("off", "v6", "v7"):
+            raise ValueError(f"long_attn must be 'off', 'v6' or 'v7', got {self.long_attn!r}")
+        if self.long_attn != "off" and self.attention_impl not in ("auto", "pallas_flat"):
+            raise ValueError("long_attn is a route of the flat attention: attention_impl "
+                             "'auto' or 'pallas_flat'")
+        if self.long_attn != "off" and self.fused_attn != "off":
+            # K6 would take every long window (the JAX run needs CLOVER_FUSED_ATTN=0)
+            raise ValueError("long_attn needs fused_attn='off'")
 
     def remat_stage(self, i_stage: int) -> bool:
         """Does stage ``i_stage`` recompute its blocks in the backward?"""
@@ -154,11 +196,13 @@ def relative_position_index(full_window: Tuple3, eff_window: Tuple3) -> np.ndarr
 
 def bias_from_table(table: torch.Tensor, full_window: Tuple3, eff_window: Tuple3,
                     num_heads: int) -> torch.Tensor:
-    """(table_len, nH) table -> (nH, N, N) fp32 attention bias."""
+    """(table_len, nH) table -> (nH, N, N) fp32 attention bias, contiguous
+    (K9 and K10 read it in place)."""
     N = int(np.prod(eff_window))
     idx = torch.from_numpy(
         relative_position_index(tuple(full_window), tuple(eff_window)).reshape(-1).astype(np.int64))
-    return table.float()[idx.to(table.device)].reshape(N, N, num_heads).permute(2, 0, 1)
+    bias = table.float()[idx.to(table.device)].reshape(N, N, num_heads)
+    return bias.permute(2, 0, 1).contiguous()
 
 
 def swin_bias_cache(backbone: "SwinTransformer3D", cfg: SwinConfig,
@@ -267,14 +311,16 @@ def _window_shift_perm_np(dims: Tuple3, window: Tuple3, shift: Tuple3):
 @functools.lru_cache(maxsize=64)
 def _device_constant(kind: str, dims: Tuple3, window: Tuple3, shift: Tuple3,
                      device: torch.device) -> Optional[torch.Tensor]:
-    """The shift permutations and region ids as device tensors, made once per
+    """The shift permutations, region ids and additive masks (dims: the
+    padded dims on the spatial path) as device tensors, made once per
     (shape, device) instead of copied from the host at every block. Made
     outside inference mode even when first asked for under it (the eval
     step), so that a later train step can save them for its backward."""
     with torch.inference_mode(False):
-        if kind == "region_ids":
-            ids = _shift_region_ids(dims, window, shift)
-            return None if ids is None else torch.from_numpy(ids).to(device)
+        if kind in ("region_ids", "mask"):
+            fn = _shift_region_ids if kind == "region_ids" else shift_attn_mask
+            found = fn(dims, window, shift)
+            return None if found is None else torch.from_numpy(found).to(device)
         perm, inv = _window_shift_perm_np(dims, window, shift)
         chosen = inv if kind == "inv_perm" else perm
         return torch.from_numpy(chosen.astype(np.int64)).to(device)
@@ -292,8 +338,13 @@ def _apply_window_perm(x: torch.Tensor, dims: Tuple3, window: Tuple3, shift: Tup
 # ------------------------------------------------------------------ modules
 
 class WindowAttention3D(nn.Module):
-    """W-MSA / SW-MSA over flattened 3-D windows with relative position bias
-    (flat 2-D path: x is (Bn*N, C) row-major)."""
+    """W-MSA / SW-MSA over flattened 3-D windows with relative position bias.
+    The rank of x picks the route, as in the JAX module: (Bn*N, C) the flat
+    route ('pallas_flat': ``WindowAttentionFn``, K1 or K11, the mask as
+    region ids); (Bn, N, C) the head-layout routes ('pallas' K9, or the
+    plain 'xla_headloop' / 'xla', the additive (nW, N, N) mask); (B, Dp,
+    Hp, Wp, C) the spatial grid ('pallas_fused' K10, the mask as a (gd, gh,
+    gw, N, N) grid)."""
 
     def __init__(self, dim: int, full_window: Tuple3, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, kernels: bool = True):
@@ -309,66 +360,166 @@ class WindowAttention3D(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_(self.relative_position_bias_table, generator)
 
-    def forward(self, x2: torch.Tensor, eff_window: Tuple3,
-                region_ids: Optional[torch.Tensor] = None,
-                bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, eff_window: Tuple3, mask: Optional[torch.Tensor] = None,
+                bias: Optional[torch.Tensor] = None, impl: str = "pallas_flat",
+                long_attn: str = "off") -> torch.Tensor:
         N = int(np.prod(eff_window))
         if bias is None:
             bias = bias_from_table(self.relative_position_bias_table, self.full_window,
                                    tuple(eff_window), self.num_heads)
-        out2 = WindowAttentionFn.apply(self.qkv(x2), bias, region_ids, self.scale,
-                                       self.num_heads, N, self.kernels)
-        return self.proj(out2)
+        qkv = self.qkv(x)
+        if x.ndim == 2:
+            long_attn = long_attn if N >= LONG_ATTN_N else "off"
+            return self.proj(WindowAttentionFn.apply(qkv, bias, mask, self.scale, self.num_heads,
+                                                     N, self.kernels, long_attn))
+        nH, hd = self.num_heads, self.dim // self.num_heads
+        if x.ndim == 5:
+            out = SpatialWindowAttentionFn.apply(qkv.view(*x.shape[:4], 3, nH, hd), bias, mask,
+                                                 tuple(eff_window), self.scale, self.kernels)
+            return self.proj(out.reshape(x.shape))
+        if impl == "pallas":
+            # the head relayout and back are PyTorch copies, as on the TPU
+            q, k, v = heads_from_flat(qkv.view(-1, 3 * self.dim), nH, N)
+            out = HeadsWindowAttentionFn.apply(q, k, v, bias, mask, self.scale, self.kernels)
+            out = flat_from_heads(out).view(x.shape)
+        else:
+            out = _xla_attention(qkv, bias, mask, self.scale, nH, impl == "xla_headloop")
+        return self.proj(out)
+
+
+def _xla_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                   scale: float, nH: int, headloop: bool) -> torch.Tensor:
+    """The JAX 'xla_headloop' / 'xla' math on (Bn, N, 3C) qkv: logits in the
+    compute dtype (bias and mask rounded to it), softmax in fp32, the
+    probabilities rounded back; per head on slices of the flat qkv, or as one
+    product on the head layout. -> (Bn, N, C)."""
+    Bn, N, threeC = qkv.shape
+    C, dt = threeC // 3, qkv.dtype
+    hd = C // nH
+
+    def attend(q, k, v, b):   # (..., N, hd) with the heads' bias b (..., N, N)
+        logits = torch.matmul(q * scale, k.transpose(-1, -2)) + b.to(dt)
+        if mask is not None:
+            nW = mask.shape[0]
+            m = mask.to(dt) if headloop else mask.to(dt)[:, None]
+            logits = (logits.view(Bn // nW, nW, *logits.shape[1:]) + m).view(logits.shape)
+        return torch.matmul(torch.softmax(logits.float(), dim=-1).to(dt), v)
+
+    if headloop:
+        return torch.cat([attend(*(qkv[..., i * C + h * hd:i * C + (h + 1) * hd]
+                                   for i in range(3)), bias[h]) for h in range(nH)], dim=-1)
+    q, k, v = qkv.view(Bn, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    return attend(q, k, v, bias).transpose(1, 2).reshape(Bn, N, C)
 
 
 class SwinBlock3D(nn.Module):
-    """One window-resident Swin block: x (B, nW*N, C) in unshifted window-major
-    order -> same. LN1 -> window attention -> DropPath -> residual, then the
-    fused LN2 + MLP + DropPath + residual half (``SwinBlock3D.
-    _window_resident_call`` and ``_mlp_half`` of the JAX package). In
-    training the two halves draw their per-sample DropPath masks separately
-    from ``generator``; the MLP half's rides K2 as a per-row scale. Where
-    ``fused_attn`` picks it for the block's window size, the first half is
-    the fused half-block (K6, ``_fused_resident_half`` of the JAX package) on
-    the block's own parameters: in eval one call of it, in training
-    ``FusedAttnBlockFn`` with DropPath as a per-window row scale."""
+    """One Swin block. Window-resident: x (B, nW*N, C) in unshifted
+    window-major order -> same (``_window_resident_call`` of the JAX
+    package). Spatial: x (B, D, H, W, C) -> same: LN1, pad, roll, partition
+    (or the padded grid itself under 'pallas_fused'), attention, reverse,
+    roll back, crop (the JAX ``__call__``). Then LN1 -> window attention ->
+    DropPath -> residual, and the fused LN2 + MLP + DropPath + residual half
+    (``_mlp_half``, on either layout). In training the two halves draw their
+    per-sample DropPath masks separately from ``generator``; the MLP half's
+    rides K2 as a per-row scale. Where ``fused_attn`` picks it for the
+    block's window size, a resident block's first half under 'pallas_flat'
+    or 'pallas' is the fused half-block (K6, ``_fused_resident_half`` of the
+    JAX package) on the block's own parameters: in eval one call of it, in
+    training ``FusedAttnBlockFn`` with DropPath as a per-window row scale."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True,
                  drop_path: float = 0.0, fused_attn: str = "auto", mlp_stash: bool = True,
-                 mlp_bwd: str = "xla"):
+                 mlp_bwd: str = "xla", attention_impl: str = "auto", long_attn: str = "off"):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.gelu = gelu
         self.mlp_stash, self.mlp_bwd = mlp_stash, mlp_bwd
         self.kernels = kernels
         self.fused_attn = fused_attn
+        self.attention_impl, self.long_attn = attention_impl, long_attn
         self.norm1 = LayerNorm(dim, kernel=kernels)
         self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias, qk_scale, kernels)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
+    def _resolve_impl(self) -> str:
+        """'auto' is the flat route, the TPU's 'pallas_flat' (the JAX block
+        takes 'xla_headloop' off the TPU only to spare interpret mode)."""
+        return "pallas_flat" if self.attention_impl == "auto" else self.attention_impl
+
+    def _mask(self, impl: str, dims: Tuple3, window: Tuple3, shift: Tuple3, device):
+        """The shift mask in the form ``impl``'s route takes: region ids on
+        the flat route, else the additive (nW, N, N) mask."""
+        kind = "region_ids" if impl == "pallas_flat" else "mask"
+        return _device_constant(kind, tuple(dims), tuple(window), tuple(shift), device)
+
     def forward(self, x: torch.Tensor, dims: Tuple3, bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, nW*N, C) window-resident tokens of a stage of token dims
+        ``dims``, or (B, D, H, W, C) on the spatial path (``dims`` unused)."""
+        if x.ndim == 5:
+            return self._spatial_call(x, bias, generator)
+        impl = self._resolve_impl()
         window, shift = effective_window(dims, self.window_size, self.shift_size)
         B, L, C = x.shape
+        N = int(np.prod(window))
         do_shift = any(s > 0 for s in shift)
-        region_ids = None
+        fused = impl in ("pallas_flat", "pallas") and fused_attn_enabled(self.fused_attn, N)
+        mask = None
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
-            region_ids = _device_constant("region_ids", tuple(dims), window, shift, x.device)
-        if fused_attn_enabled(self.fused_attn, int(np.prod(window))):
-            x = self._fused_attn_half(x, window, region_ids, bias, generator)
+            mask = self._mask("pallas_flat" if fused else impl, dims, window, shift, x.device)
+        if fused:
+            x = self._fused_attn_half(x, window, mask, bias, generator)
         else:
             xn = self.norm1(x)
-            attn = self.attn(xn.reshape(-1, C), window, region_ids, bias).view(B, L, C)
+            xn = xn.reshape(-1, C) if impl == "pallas_flat" else xn.reshape(-1, N, C)
+            attn = self.attn(xn, window, mask, bias, impl, self.long_attn).view(B, L, C)
             x = x + self.drop_path(attn, generator)
         x = self._mlp_half(x, generator)
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=True)
         return x
+
+    def _spatial_call(self, x: torch.Tensor, bias: Optional[torch.Tensor],
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The spatial block path on x (B, D, H, W, C): LN1, zero pad to whole
+        windows after the norm, roll by -shift, attention on the windows of
+        the padded grid (partitioned, or read in place by K10 under
+        'pallas_fused'), roll back, crop, DropPath, residual; then the MLP
+        half."""
+        impl = self._resolve_impl()
+        B, D, H, W, C = x.shape
+        window, shift = effective_window((D, H, W), self.window_size, self.shift_size)
+        pad = tuple((-s) % w for s, w in zip((D, H, W), window))
+        padded = (D + pad[0], H + pad[1], W + pad[2])
+        N = int(np.prod(window))
+        xn = self.norm1(x)
+        if any(pad):
+            xn = F.pad(xn, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        do_shift = any(s > 0 for s in shift)
+        mask = None
+        if do_shift:
+            xn = torch.roll(xn, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
+            mask = self._mask(impl, padded, window, shift, x.device)
+        if impl == "pallas_fused":
+            grid = None if mask is None else mask.view(
+                *(p // w for p, w in zip(padded, window)), N, N)
+            out = self.attn(xn, window, grid, bias, impl)
+        else:
+            xw = window_partition(xn, window)
+            xw = xw.reshape(-1, C) if impl == "pallas_flat" else xw
+            out = self.attn(xw, window, mask, bias, impl, self.long_attn)
+            out = window_reverse(out.view(-1, N, C), window, B, *padded)
+        if do_shift:
+            out = torch.roll(out, shift, (1, 2, 3))
+        if any(pad):
+            out = out[:, :D, :H, :W]
+        x = x + self.drop_path(out, generator)
+        return self._mlp_half(x, generator)
 
     def _fused_attn_half(self, x: torch.Tensor, window: Tuple3,
                          region_ids: Optional[torch.Tensor], bias: Optional[torch.Tensor],
@@ -402,7 +553,9 @@ class SwinBlock3D(nn.Module):
 
     def _mlp_half(self, x: torch.Tensor,
                   generator: Optional[torch.Generator]) -> torch.Tensor:
-        B, L, C = x.shape
+        """Rank-agnostic: x (B, L, C) or (B, D, H, W, C), the DropPath
+        factor of sample b on its prod(x.shape[1:-1]) rows."""
+        B, C = x.shape[0], x.shape[-1]
         args = (x.reshape(-1, C), self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
         if not self.training:
@@ -410,7 +563,8 @@ class SwinBlock3D(nn.Module):
             return op(*args, 1e-5, self.gelu).view(x.shape)
         row_scale = None
         if self.drop_path.active():
-            row_scale = self.drop_path.sample_scale(B, generator, x.device).repeat_interleave(L)
+            row_scale = self.drop_path.sample_scale(B, generator, x.device).repeat_interleave(
+                int(np.prod(x.shape[1:-1])))
         out = FusedLnMlpResidualFn.apply(*args, row_scale, 1e-5, self.gelu, self.kernels,
                                          self.mlp_stash, self.mlp_bwd)
         return out.view(x.shape)
@@ -494,8 +648,9 @@ class PatchEmbed3D(nn.Module):
 
 
 class SwinTransformer3D(nn.Module):
-    """Backbone: patch embed -> (SimMIM mask mixing) -> window-resident
-    stages -> final LN.
+    """Backbone: patch embed -> (SimMIM mask mixing) -> stages, each
+    window-resident or spatial (``SwinConfig.window_resident``,
+    ``attention_impl``) -> final LN.
 
     forward(x, bias_cache=None, generator=None, token_mask=None,
     mode='full'): x (B, D', H', W', pd*ph*pw*3) host s2d clips, or with
@@ -527,7 +682,7 @@ class SwinTransformer3D(nn.Module):
                     (0, 0, 0) if i_blk % 2 == 0 else shift, cfg.mlp_ratio, cfg.qkv_bias,
                     cfg.qk_scale, cfg.gelu, kernels,
                     dpr[sum(cfg.depths[:i_stage]) + i_blk], cfg.fused_attn, cfg.mlp_stash,
-                    cfg.mlp_bwd))
+                    cfg.mlp_bwd, cfg.attention_impl, cfg.long_attn))
             if i_stage < len(cfg.depths) - 1:
                 self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
         self.norm = LayerNorm(cfg.num_features, kernel=kernels)
@@ -561,12 +716,12 @@ class SwinTransformer3D(nn.Module):
             B, D, H, W, C = x.shape
             dims = (D, H, W)
             window = effective_window(dims, cfg.window_size)
-            if any(d % w for d, w in zip(dims, window)):
-                raise NotImplementedError(
-                    f"stage {i_stage}: token dims {dims} do not divide the window "
-                    f"{window}; only window-resident stages are ported")
-            N = int(np.prod(window))
-            x = window_partition(x, window).reshape(B, -1, C)
+            # a resident stage partitions once and reverses once; the others'
+            # blocks take (B, D, H, W, C) and pad, roll and partition each
+            resident = (cfg.window_resident and cfg.attention_impl != "pallas_fused"
+                        and not any(d % w for d, w in zip(dims, window)))
+            if resident:
+                x = window_partition(x, window).reshape(B, -1, C)
             checkpointed = cfg.remat_stage(i_stage) and torch.is_grad_enabled()
             for i_blk in range(depth):
                 name = f"stage_{i_stage}_block_{i_blk}"
@@ -577,7 +732,8 @@ class SwinTransformer3D(nn.Module):
                               generator=generator)
                 else:
                     x = block(x, dims, blk_bias, generator)
-            x = window_reverse(x.reshape(-1, N, C), window, B, D, H, W)
+            if resident:
+                x = window_reverse(x.reshape(-1, int(np.prod(window)), C), window, B, D, H, W)
             if i_stage < len(cfg.depths) - 1:
                 x = getattr(self, f"stage_{i_stage}_downsample")(x)
         x = self.norm(x)

@@ -29,17 +29,30 @@ from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
     mlp_postln_plain,
 )
 from clover_tpu_torch.ops.window_attention import (  # noqa: F401
+    HeadsWindowAttentionFn,
+    SpatialWindowAttentionFn,
     WindowAttentionFn,
+    flash_window_attention,
     flat2_window_attention,
     flat2_window_attention_bwd,
+    flat_flash_window_attention,
+    fused_window_attention,
+    long_window_attention_from_flat,
+    spatial_window_attention,
+    spatial_window_attention_plain,
     window_attention_bwd_plain,
+    window_attention_flat_flash_plain,
+    window_attention_heads_bwd_plain,
+    window_attention_heads_plain,
+    window_attention_long_plain,
     window_attention_plain,
 )
 
 KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm,
            flat2_window_attention_bwd, fused_ln_mlp_residual_stash, fused_window_attn_block,
            fused_mlp_postln_dropout, fused_ln_mlp_residual_train, ln_mlp_residual_bwd_onepass,
-           ln_mlp_bwd_dx, ln_mlp_bwd_dw)
+           ln_mlp_bwd_dx, ln_mlp_bwd_dw, fused_window_attention, spatial_window_attention,
+           flash_window_attention, flat_flash_window_attention)
 
 
 def reset_launch_counts() -> None:

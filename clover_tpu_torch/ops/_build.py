@@ -44,6 +44,10 @@ _SIGNATURES = {
     "clover_attn_block": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),
     "clover_mlp_bwd_rows": (_P,) * 14 + (_I,) * 5 + (_F, _I, _P),
     "clover_mlp_bwd_dw": (_P,) * 10 + (_I,) * 4 + (_F, _P),
+    "clover_window_attention_heads": (_P,) * 6 + (_I,) * 5 + (_F, _P),
+    "clover_window_attention_spatial": (_P,) * 4 + (_I,) * 9 + (_F, _P),
+    "clover_flash_heads": (_P,) * 6 + (_I,) * 4 + (_F, _P),
+    "clover_flash_flat": (_P,) * 4 + (_I,) * 4 + (_F, _P),
 }
 
 _lock = threading.Lock()

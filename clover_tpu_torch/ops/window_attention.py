@@ -22,6 +22,26 @@ another region than the query get -100, which is the reference's additive
 mask (``swin3d.shift_attn_mask``); the TPU kernels' region-lanes form is a
 TPU device and is not used here. As in the reference, the bias is rounded
 to the compute dtype before the kernel (and before the plain version).
+
+The other window-attention forwards of the JAX module:
+
+- ``fused_window_attention(q, k, v, bias, mask, scale)`` (K9): head-major
+  q/k/v (Bn, nH, N, hd), the fp32 bias (nH, N, N) and an fp32 additive mask
+  (nW, N, N) or None, fp32 logits; the port of ``_forward`` and
+  ``_forward_v2`` (v2 / v4), three TPU blockings of one function.
+  ``HeadsWindowAttentionFn`` adds ``_bwd``'s plain backward, the mask's
+  gradient included.
+- ``spatial_window_attention(qkv5, bias, mask_grid, window, scale)`` (K10):
+  the same attention with each window read straight from the padded
+  (B, Dp, Hp, Wp, 3, nH, hd) qkv grid, the mask as a (gd, gh, gw, N, N)
+  grid; the port of ``fused_partition_window_attention``.
+  ``SpatialWindowAttentionFn`` adds ``_spatial_bwd``'s plain backward.
+- ``flash_window_attention`` and ``flat_flash_window_attention`` (K11): the
+  key-tiled online softmax of ``_forward_long`` (head-major, reached from the
+  flat qkv through ``long_window_attention_from_flat``, the port of
+  ``_forward_long_from_flat``) and ``_forward_flat_flash`` (the flat qkv),
+  bias rounded to the compute dtype, the mask as region ids. They feed the
+  forward of ``WindowAttentionFn`` (``long_attn``); its backward stays K5.
 """
 
 from __future__ import annotations
@@ -162,6 +182,23 @@ def _attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: in
     return dqkv.permute(1, 3, 0, 2, 4).reshape(M, threeC), dbias
 
 
+def _check_bias(bias, num_heads: int, N: int, dev) -> None:
+    if bias.device != dev or tuple(bias.shape) != (num_heads, N, N):
+        raise ValueError(f"bias: {tuple(bias.shape)} on {bias.device}, expected "
+                         f"{(num_heads, N, N)} on {dev}")
+
+
+def _region_nW(region_ids, Bn: int, N: int, dev) -> int:
+    """Check the (nW, N) int32 region ids a kernel takes; -> nW (1 if None)."""
+    if region_ids is None:
+        return 1
+    nW = region_ids.shape[0]
+    _build.require(region_ids, "region_ids", torch.int32, dev, (nW, N))
+    if Bn % nW:
+        raise ValueError(f"{Bn} windows are not a multiple of nW={nW}")
+    return nW
+
+
 def _kernel_shapes(qkv2, bias, region_ids, num_heads: int, N: int):
     """Check what K1 and K5 take; -> (Bn, C, nW, key tiles)."""
     M, threeC = qkv2.shape
@@ -174,16 +211,8 @@ def _kernel_shapes(qkv2, bias, region_ids, num_heads: int, N: int):
                          f"N <= {16 * KEY_TILES[-1]}; got C={C}, heads={num_heads}, N={N}, "
                          f"rows={M}")
     _build.require(qkv2, "qkv2", torch.bfloat16, dev)
-    if bias.device != dev or tuple(bias.shape) != (num_heads, N, N):
-        raise ValueError(f"bias: {tuple(bias.shape)} on {bias.device}, expected "
-                         f"{(num_heads, N, N)} on {dev}")
-    nW = 1
-    if region_ids is not None:
-        nW = region_ids.shape[0]
-        _build.require(region_ids, "region_ids", torch.int32, dev, (nW, N))
-        if Bn % nW:
-            raise ValueError(f"{Bn} windows are not a multiple of nW={nW}")
-    return Bn, C, nW, next(t for t in KEY_TILES if N <= 16 * t)
+    _check_bias(bias, num_heads, N, dev)
+    return Bn, C, _region_nW(region_ids, Bn, N, dev), next(t for t in KEY_TILES if N <= 16 * t)
 
 
 def flat2_window_attention(qkv2, bias, region_ids, scale: float, num_heads: int,
@@ -240,18 +269,25 @@ def flat2_window_attention_bwd(qkv2, bias, region_ids, g2, scale: float, num_hea
 class WindowAttentionFn(torch.autograd.Function):
     """Window attention with its backward: K1 forward and K5 backward
     (``kernels=True``; their plain versions for CPU tensors), or both plain
-    versions (``kernels=False``). Saves qkv2, the bias rounded to qkv2's
-    dtype and the region ids; returns dbias in the bias's dtype so that it
-    flows back through ``bias_from_table`` into the table. The region ids
-    get no gradient (the JAX package's zero-mask-gradient contract).
+    versions (``kernels=False``). ``long_attn`` 'v7' / 'v6' takes the
+    forward through K11 instead of K1 (``flat_flash_window_attention`` /
+    ``long_window_attention_from_flat``, the JAX ``CLOVER_WA_LONG``
+    routes), with the same K5 backward, as the JAX ``_flat_bwd`` is for
+    them. Saves qkv2, the bias rounded to qkv2's dtype and the region ids;
+    returns dbias in the bias's dtype so that it flows back through
+    ``bias_from_table`` into the table. The region ids get no gradient (the
+    JAX package's zero-mask-gradient contract).
 
     ``WindowAttentionFn.apply(qkv2, bias, region_ids, scale, num_heads, N,
-    kernels)``"""
+    kernels[, long_attn])``"""
 
     @staticmethod
-    def forward(ctx, qkv2, bias, region_ids, scale, num_heads, N, kernels):
+    def forward(ctx, qkv2, bias, region_ids, scale, num_heads, N, kernels, long_attn="off"):
         bias_c = bias.detach().to(qkv2.dtype)
-        fwd = flat2_window_attention if kernels else window_attention_plain
+        fwd = {"off": (flat2_window_attention, window_attention_plain),
+               "v7": (flat_flash_window_attention, window_attention_flat_flash_plain),
+               "v6": (long_window_attention_from_flat, window_attention_flat_flash_plain),
+               }[long_attn][0 if kernels else 1]
         out = fwd(qkv2, bias_c, region_ids, scale, num_heads, N)
         ctx.save_for_backward(qkv2, bias_c, region_ids)
         ctx.args = (scale, num_heads, N, kernels, bias.dtype)
@@ -263,8 +299,356 @@ class WindowAttentionFn(torch.autograd.Function):
         scale, num_heads, N, kernels, bias_dtype = ctx.args
         bwd = flat2_window_attention_bwd if kernels else window_attention_bwd_plain
         dqkv2, dbias = bwd(qkv2, bias_c, region_ids, g.contiguous(), scale, num_heads, N)
-        return dqkv2, dbias.to(bias_dtype), None, None, None, None, None
+        return dqkv2, dbias.to(bias_dtype), None, None, None, None, None, None
+
+
+# ----------------------------------------------------- K9: head-major (#7, #8)
+
+def _heads_logits(q, k, bias, mask, scale: float, acc):
+    """fp32 (float64 for float64 inputs) scale * q k^T + bias (+ mask of
+    window b % nW) of (Bn, nH, N, hd) q, k -> (Bn, nH, N, N)."""
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale + bias.to(acc)[None]
+    if mask is not None:
+        Bn, nH, N, _ = logits.shape
+        nW = mask.shape[0]
+        logits = (logits.view(Bn // nW, nW, nH, N, N) + mask.to(acc)[None, :, None]).view(
+            Bn, nH, N, N)
+    return logits
+
+
+def _over_window_chunks(fn, Bn: int, nW: int, nH: int, N: int, *tensors):
+    """fn over chunks of whole nW-groups of windows (:func:`window_chunk`);
+    ``tensors`` are cut along dim 0, fn's one output concatenated."""
+    step = window_chunk(Bn, nW, nH, N)
+    if step >= Bn:
+        return fn(*tensors)
+    return torch.cat([fn(*(t[b0:b0 + step] for t in tensors)) for b0 in range(0, Bn, step)])
+
+
+def window_attention_heads_plain(q, k, v, bias, mask, scale: float):
+    """Plain version of K9: q, k, v (Bn, nH, N, hd) -> (Bn, nH, N, hd);
+    fp32 logits with the fp32 bias and mask, probabilities rounded to the
+    compute dtype before the product with v; over chunks of windows."""
+    Bn, nH, N, _ = q.shape
+    nW = 1 if mask is None else mask.shape[0]
+    acc = torch.promote_types(q.dtype, torch.float32)
+
+    def run(q, k, v):
+        probs = torch.softmax(_heads_logits(q, k, bias, mask, scale, acc), dim=-1)
+        return torch.matmul(probs.to(q.dtype), v)
+
+    return _over_window_chunks(run, Bn, nW, nH, N, q, k, v)
+
+
+def window_attention_heads_bwd_plain(q, k, v, bias, mask, g, scale: float):
+    """``_bwd``'s math: the fp32 softmax recomputed from q, k, bias and mask,
+    products in fp32 -> (dq, dk, dv in q's dtype, dbias (nH, N, N) fp32,
+    dmask (nW, N, N) fp32 or None), over chunks of windows, dbias and dmask
+    summed over them."""
+    Bn, nH, N, _ = q.shape
+    nW = 1 if mask is None else mask.shape[0]
+    acc = torch.promote_types(q.dtype, torch.float32)
+    step = window_chunk(Bn, nW, nH, N)
+    dqkv, dbias, dmask = [], 0, 0
+    for b0 in range(0, Bn, step):
+        qc, kc, vc, gc = (t[b0:b0 + step].to(acc) for t in (q, k, v, g))
+        probs = torch.softmax(_heads_logits(qc, kc, bias, mask, scale, acc), dim=-1)
+        dv = torch.matmul(probs.transpose(-1, -2), gc)
+        dp = torch.matmul(gc, vc.transpose(-1, -2))
+        dlog = probs * (dp - (dp * probs).sum(-1, keepdim=True))
+        del probs, dp
+        dqkv.append(torch.stack([torch.matmul(dlog, kc) * scale,
+                                 torch.matmul(dlog.transpose(-1, -2), qc) * scale, dv]))
+        dbias = dbias + dlog.sum(0)
+        if mask is not None:
+            dmask = dmask + dlog.view(-1, nW, nH, N, N).sum((0, 2))
+    dq, dk, dv = torch.cat(dqkv, dim=1).to(q.dtype).unbind(0)
+    return dq, dk, dv, dbias, (None if mask is None else dmask)
+
+
+def _heads_kernel_args(q, k, v, bias, mask):
+    """Check what K9 takes; -> (Bn, nH, N, nW, key tiles)."""
+    Bn, nH, N, hd = q.shape
+    dev = q.device
+    if hd != 32 or N > 16 * KEY_TILES[-1]:
+        raise ValueError(f"window-attention kernel takes head dim 32 and N <= "
+                         f"{16 * KEY_TILES[-1]}; got head dim {hd}, N={N}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _build.require(t, name, torch.bfloat16, dev, (Bn, nH, N, hd))
+    _build.require(bias, "bias", torch.float32, dev, (nH, N, N))
+    nW = 1
+    if mask is not None:
+        nW = mask.shape[0]
+        _build.require(mask, "mask", torch.float32, dev, (nW, N, N))
+        if Bn % nW:
+            raise ValueError(f"{Bn} windows are not a multiple of nW={nW}")
+    return Bn, nH, N, nW, next(t for t in KEY_TILES if N <= 16 * t)
+
+
+def fused_window_attention(q, k, v, bias, mask, scale: float):
+    """softmax(scale * q k^T + bias (+ mask)) v: q, k, v (Bn, nH, N, hd)
+    bf16 -> (Bn, nH, N, hd); bias (nH, N, N) fp32; mask (nW, N, N) fp32
+    additive or None (window b takes row b % nW)."""
+    if not q.is_cuda:
+        return window_attention_heads_plain(q, k, v, bias, mask, scale)
+    Bn, nH, N, nW, key_tiles = _heads_kernel_args(q, k, v, bias, mask)
+    out = torch.empty_like(q)
+    _build.launch("clover_window_attention_heads", q, k, v, bias, mask, out, Bn, N, nH, nW,
+                  key_tiles, float(scale), _build.stream(q.device))
+    fused_window_attention.launches += 1
+    return out
+
+
+class HeadsWindowAttentionFn(torch.autograd.Function):
+    """``fused_window_attention`` with ``_bwd``'s plain backward: K9 forward
+    (``kernels=True``; its plain version for CPU tensors) or the plain
+    version. dbias and dmask come back fp32, in the bias's and the mask's
+    dtypes.
+
+    ``HeadsWindowAttentionFn.apply(q, k, v, bias, mask, scale, kernels)``"""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, scale, kernels):
+        fwd = fused_window_attention if kernels else window_attention_heads_plain
+        out = fwd(q, k, v, bias, mask, scale)
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask = ctx.saved_tensors
+        dq, dk, dv, dbias, dmask = window_attention_heads_bwd_plain(q, k, v, bias, mask, g,
+                                                                    ctx.scale)
+        dmask = None if mask is None else dmask.to(mask.dtype)
+        return dq, dk, dv, dbias.to(bias.dtype), dmask, None, None
+
+
+# ------------------------------------------------------ K10: spatial grid (#9)
+
+def _grid_windows(x, window):
+    """(B, Dp, Hp, Wp, *rest) -> (B * gd * gh * gw, N, *rest), windows in
+    (b, i, j, k) order, tokens in (d, h, w) order (``window_partition``)."""
+    B, Dp, Hp, Wp = x.shape[:4]
+    wd, wh, ww = window
+    rest = tuple(x.shape[4:])
+    x = x.reshape(B, Dp // wd, wd, Hp // wh, wh, Wp // ww, ww, *rest)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, *range(7, 7 + len(rest)))
+    return x.reshape(-1, wd * wh * ww, *rest)
+
+
+def _grid_reverse(x, window, B, Dp, Hp, Wp):
+    """Inverse of :func:`_grid_windows`."""
+    wd, wh, ww = window
+    rest = tuple(x.shape[2:])
+    x = x.reshape(B, Dp // wd, Hp // wh, Wp // ww, wd, wh, ww, *rest)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, *range(7, 7 + len(rest)))
+    return x.reshape(B, Dp, Hp, Wp, *rest)
+
+
+def spatial_heads(qkv5, window):
+    """(B, Dp, Hp, Wp, 3, nH, hd) -> head-major q, k, v (Bn, nH, N, hd)."""
+    x = _grid_windows(qkv5, window)                     # (Bn, N, 3, nH, hd)
+    return (x[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def spatial_window_attention_plain(qkv5, bias, mask_grid, window, scale: float):
+    """Plain version of K10 (``_xla_spatial_reference``): partition the grid,
+    :func:`window_attention_heads_plain`, reverse. -> (B, Dp, Hp, Wp, nH,
+    hd)."""
+    B, Dp, Hp, Wp = qkv5.shape[:4]
+    N = int(window[0] * window[1] * window[2])
+    mask = None if mask_grid is None else mask_grid.reshape(-1, N, N)
+    out = window_attention_heads_plain(*spatial_heads(qkv5, window), bias, mask, scale)
+    return _grid_reverse(out.transpose(1, 2), window, B, Dp, Hp, Wp)
+
+
+def spatial_window_attention(qkv5, bias, mask_grid, window, scale: float):
+    """Window attention straight on the padded spatial grid: qkv5 (B, Dp,
+    Hp, Wp, 3, nH, hd) bf16, padded and (for a shifted block) rolled; bias
+    (nH, N, N) fp32; mask_grid (gd, gh, gw, N, N) fp32 additive or None ->
+    (B, Dp, Hp, Wp, nH, hd). Dp, Hp, Wp are multiples of the window."""
+    if not qkv5.is_cuda:
+        return spatial_window_attention_plain(qkv5, bias, mask_grid, window, scale)
+    B, Dp, Hp, Wp, three, nH, hd = qkv5.shape
+    wd, wh, ww = (int(w) for w in window)
+    N = wd * wh * ww
+    dev = qkv5.device
+    if three != 3 or hd != 32 or N > 16 * KEY_TILES[-1] or Dp % wd or Hp % wh or Wp % ww:
+        raise ValueError(f"spatial window attention takes head dim 32, N <= "
+                         f"{16 * KEY_TILES[-1]} and a grid of whole windows; got qkv "
+                         f"{tuple(qkv5.shape)}, window {tuple(window)}")
+    _build.require(qkv5, "qkv5", torch.bfloat16, dev)
+    _build.require(bias, "bias", torch.float32, dev, (nH, N, N))
+    if mask_grid is not None:
+        _build.require(mask_grid, "mask_grid", torch.float32, dev,
+                       (Dp // wd, Hp // wh, Wp // ww, N, N))
+    out = torch.empty((B, Dp, Hp, Wp, nH, hd), dtype=qkv5.dtype, device=dev)
+    _build.launch("clover_window_attention_spatial", qkv5, bias, mask_grid, out, B, Dp, Hp, Wp,
+                  wd, wh, ww, nH, next(t for t in KEY_TILES if N <= 16 * t), float(scale),
+                  _build.stream(dev))
+    spatial_window_attention.launches += 1
+    return out
+
+
+class SpatialWindowAttentionFn(torch.autograd.Function):
+    """``spatial_window_attention`` with ``_spatial_bwd``'s math (the
+    backward of the partitioned reference): K10 forward (``kernels=True``;
+    its plain version for CPU tensors) or the plain version; dqkv5 in the
+    grid layout, dbias fp32, the mask grid's gradient.
+
+    ``SpatialWindowAttentionFn.apply(qkv5, bias, mask_grid, window, scale,
+    kernels)``"""
+
+    @staticmethod
+    def forward(ctx, qkv5, bias, mask_grid, window, scale, kernels):
+        fwd = spatial_window_attention if kernels else spatial_window_attention_plain
+        out = fwd(qkv5, bias, mask_grid, window, scale)
+        ctx.save_for_backward(qkv5, bias, mask_grid)
+        ctx.args = (tuple(window), scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv5, bias, mask_grid = ctx.saved_tensors
+        window, scale = ctx.args
+        B, Dp, Hp, Wp = qkv5.shape[:4]
+        N = int(window[0] * window[1] * window[2])
+        mask = None if mask_grid is None else mask_grid.reshape(-1, N, N)
+        q, k, v = spatial_heads(qkv5, window)
+        gh = _grid_windows(g, window).transpose(1, 2)          # (Bn, nH, N, hd)
+        dq, dk, dv, dbias, dmask = window_attention_heads_bwd_plain(q, k, v, bias, mask, gh,
+                                                                    scale)
+        dqkv = torch.stack([dq, dk, dv], dim=2).transpose(1, 3)   # (Bn, N, 3, nH, hd)
+        dqkv5 = _grid_reverse(dqkv, window, B, Dp, Hp, Wp)
+        dmask = None if mask_grid is None else dmask.view(mask_grid.shape).to(mask_grid.dtype)
+        return dqkv5, dbias.to(bias.dtype), dmask, None, None, None
+
+
+# ------------------------------------------------ K11: key-tiled flash (#10, #11)
+
+FLASH_KEYS = 64   # K11's key tile: the plain versions take the same online-softmax steps
+
+
+def _flash_plain(q, k, v, bias, region_ids, scale: float, tile: int = FLASH_KEYS):
+    """The key-tiled online softmax of ``_forward_long``: q, k, v (Bn, nH,
+    N, hd), tiles of ``tile`` keys, fp32 running max / sum / accumulator,
+    the bias and the -100 region mask in the compute dtype, probabilities
+    rounded to it before P.V. -> (Bn, nH, N, hd)."""
+    Bn, nH, N, hd = q.shape
+    dt = q.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    bias_a = bias.to(dt).to(acc)
+    mask = None
+    if region_ids is not None:
+        nW = region_ids.shape[0]
+        mask = region_mask(region_ids, dt).to(acc)[None, :, None]   # (1, nW, 1, N, N)
+    qa = q.to(acc)
+    m = torch.full((Bn, nH, N, 1), float("-inf"), dtype=acc, device=q.device)
+    l = torch.zeros_like(m)
+    o = torch.zeros((Bn, nH, N, hd), dtype=acc, device=q.device)
+    for k0 in range(0, N, tile):
+        ks = slice(k0, min(N, k0 + tile))
+        s = torch.matmul(qa, k[:, :, ks].to(acc).transpose(-1, -2)) * scale + bias_a[None, :, :, ks]
+        if mask is not None:
+            s = (s.view(Bn // nW, nW, nH, N, -1) + mask[..., ks]).view(Bn, nH, N, -1)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        o = o * corr + torch.matmul(p.to(dt).to(acc), v[:, :, ks].to(acc))
+        m = m_new
+    return (o / l).to(dt)
+
+
+def window_attention_long_plain(q, k, v, bias, region_ids, scale: float):
+    """Plain version of K11's head-major layout (``_forward_long``): q, k, v
+    (Bn, nH, N, hd) -> (Bn, nH, N, hd), over chunks of windows."""
+    Bn, nH, N, _ = q.shape
+    nW = 1 if region_ids is None else region_ids.shape[0]
+    return _over_window_chunks(lambda a, b, c: _flash_plain(a, b, c, bias, region_ids, scale),
+                               Bn, nW, nH, N, q, k, v)
+
+
+def heads_from_flat(qkv2, num_heads: int, N: int):
+    """(Bn*N, 3C) -> contiguous head-major q, k, v (Bn, nH, N, hd)."""
+    M, threeC = qkv2.shape
+    x = qkv2.view(M // N, N, 3, num_heads, threeC // (3 * num_heads)).permute(2, 0, 3, 1, 4)
+    return (t.contiguous() for t in x.unbind(0))
+
+
+def flat_from_heads(out):
+    """(Bn, nH, N, hd) -> (Bn*N, C)."""
+    Bn, nH, N, hd = out.shape
+    return out.transpose(1, 2).reshape(Bn * N, nH * hd)
+
+
+def window_attention_flat_flash_plain(qkv2, bias, region_ids, scale: float, num_heads: int,
+                                      N: int):
+    """Plain version of K11 on the flat qkv, both of ``_forward_flat_flash``
+    and of ``_forward_long_from_flat`` (one function in two layouts): qkv2
+    (Bn*N, 3C) -> (Bn*N, C), the same steps as :func:`_flash_plain`."""
+    out = window_attention_long_plain(*heads_from_flat(qkv2, num_heads, N), bias, region_ids,
+                                      scale)
+    return flat_from_heads(out)
+
+
+def _flash_kernel_args(bias, region_ids, Bn: int, nH: int, N: int, dev):
+    """Check the bias and region ids K11 takes; -> (bf16 bias, nW)."""
+    _check_bias(bias, nH, N, dev)
+    return bias.to(torch.bfloat16).contiguous(), _region_nW(region_ids, Bn, N, dev)
+
+
+def flash_window_attention(q, k, v, bias, region_ids, scale: float):
+    """K11, head-major (``_forward_long``): q, k, v (Bn, nH, N, 32) bf16 ->
+    (Bn, nH, N, 32); bias (nH, N, N), used in bf16; region ids (nW, N) int32
+    or None. Any N."""
+    if not q.is_cuda:
+        return window_attention_long_plain(q, k, v, bias, region_ids, scale)
+    Bn, nH, N, hd = q.shape
+    if hd != 32:
+        raise ValueError(f"flash window attention takes head dim 32, got {hd}")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        _build.require(t, name, torch.bfloat16, q.device, (Bn, nH, N, hd))
+    bias_c, nW = _flash_kernel_args(bias, region_ids, Bn, nH, N, q.device)
+    out = torch.empty_like(q)
+    _build.launch("clover_flash_heads", q, k, v, bias_c, region_ids, out, Bn, N, nH, nW,
+                  float(scale), _build.stream(q.device))
+    flash_window_attention.launches += 1
+    return out
+
+
+def flat_flash_window_attention(qkv2, bias, region_ids, scale: float, num_heads: int, N: int):
+    """K11, flat (``_forward_flat_flash``): qkv2 (Bn*N, 3C) bf16 -> (Bn*N,
+    C); bias (nH, N, N), used in bf16; region ids (nW, N) int32 or None.
+    Any N."""
+    if not qkv2.is_cuda:
+        return window_attention_flat_flash_plain(qkv2, bias, region_ids, scale, num_heads, N)
+    M, threeC = qkv2.shape
+    C = threeC // 3
+    if C != num_heads * 32 or M % N:
+        raise ValueError(f"flash window attention takes head dim 32 and whole windows; got "
+                         f"C={C}, heads={num_heads}, N={N}, rows={M}")
+    _build.require(qkv2, "qkv2", torch.bfloat16, qkv2.device)
+    bias_c, nW = _flash_kernel_args(bias, region_ids, M // N, num_heads, N, qkv2.device)
+    out = torch.empty((M, C), dtype=qkv2.dtype, device=qkv2.device)
+    _build.launch("clover_flash_flat", qkv2, bias_c, region_ids, out, M // N, N, num_heads, nW,
+                  float(scale), _build.stream(qkv2.device))
+    flat_flash_window_attention.launches += 1
+    return out
+
+
+def long_window_attention_from_flat(qkv2, bias, region_ids, scale: float, num_heads: int,
+                                    N: int):
+    """``_forward_long_from_flat``: the flat qkv relayouted to heads (PyTorch
+    copies), :func:`flash_window_attention`, and back. -> (Bn*N, C)."""
+    out = flash_window_attention(*heads_from_flat(qkv2, num_heads, N), bias, region_ids, scale)
+    return flat_from_heads(out)
 
 
 flat2_window_attention.launches = 0
 flat2_window_attention_bwd.launches = 0
+fused_window_attention.launches = 0
+spatial_window_attention.launches = 0
+flash_window_attention.launches = 0
+flat_flash_window_attention.launches = 0
