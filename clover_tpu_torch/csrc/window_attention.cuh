@@ -6,14 +6,15 @@
 // its logits / exp / P.V steps on one key tile, K11
 // (window_attention_flash.cu). What is added to the scaled logits is a
 // template parameter ("terms": add(n-tile, l[4])), and so is where a strip's
-// output rows go ("out": row(q)): K1's bias in accumulator order and region
-// ids (RegionTerms), K9 / K10's fp32 bias and fp32 additive mask
-// (DenseTerms), K11's bf16 bias and region ids on a key tile.
+// output rows go ("out": row(q)): K1's bf16 bias in accumulator order and
+// region ids (RegionTerms), K9 / K10's fp32 bias and fp32 additive mask,
+// both in accumulator order (FragTerms), K11's bf16 bias and region ids on
+// a key tile.
 //
 // A warp keeps its strip's 16 x Np logits in mma.sync (m16n8k16, bf16 in,
 // fp32 accumulate) accumulators: a thread holds two rows, so the row max
 // and sum are two quad shuffles. The bias comes in that accumulator order
-// (ops/window_attention.py::fragment_bias; -inf in the padded keys). The
+// (ops/window_attention.py::fragment_terms; -inf in the padded keys). The
 // probabilities are repacked in registers as the bf16 A operand of the P.V
 // product, and V comes in through ldmatrix.trans. Up to 16 key tiles the
 // strip is one pass; past that the whole strip would spill (19 tiles: 152
@@ -52,29 +53,20 @@ struct RegionTerms {
   }
 };
 
-// K9 / K10's terms: the head's fp32 bias and the window's fp32 additive mask
-// read from device memory (rows q0, q1 clamped to N - 1: padded rows are
-// never stored), -inf past N keys
-struct DenseTerms {
-  const float* b0;
-  const float* b1;
-  const float* m0;  // nullptr: unshifted block
-  const float* m1;
-  int N, tq;
+// K9 / K10's terms: the head's fp32 bias and the window's fp32 additive mask,
+// each in accumulator order (ops/window_attention.py::fragment_terms: -inf in
+// the bias's padded keys, 0 in the rest of the padding); bias_s and mask_s
+// are this lane's entries of n-tile 0 of the strip, one 16-byte load of each
+// per n-tile, a warp's load one contiguous 512-byte line
+struct FragTerms {
+  const float4* bias_s;
+  const float4* mask_s;  // nullptr: unshifted block
   __device__ __forceinline__ void add(int nt, float (&l)[4]) const {
-    const int k = nt * 8 + tq * 2;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (k + e < N) {
-        l[e] += __ldg(b0 + k + e);
-        l[2 + e] += __ldg(b1 + k + e);
-        if (m0 != nullptr) {
-          l[e] += __ldg(m0 + k + e);
-          l[2 + e] += __ldg(m1 + k + e);
-        }
-      } else {
-        l[e] = -INFINITY, l[2 + e] = -INFINITY;
-      }
+    const float4 b = __ldg(bias_s + nt * 32);  // rows q0, q1 x keys k, k+1
+    l[0] += b.x, l[1] += b.y, l[2] += b.z, l[3] += b.w;
+    if (mask_s != nullptr) {
+      const float4 m = __ldg(mask_s + nt * 32);
+      l[0] += m.x, l[1] += m.y, l[2] += m.z, l[3] += m.w;
     }
   }
 };
@@ -96,16 +88,14 @@ struct FlatRows {
   __device__ __forceinline__ long out(int r) const { return (row0 + r) * C + h * kHd; }
 };
 
-// K10: token r = (td, th, tw) of a window whose corner token is `corner` in
-// a (B, Dp, Hp, Wp) grid of 3C-wide qkv rows (k at +C, v at +2C) and C-wide
-// output rows
+// K10: token r of a window whose corner token is `corner` in a (B, Dp, Hp,
+// Wp) grid of 3C-wide qkv rows (k at +C, v at +2C) and C-wide output rows:
+// corner + rel[r], rel (shared memory) the same for every window of the grid
 struct GridRows {
   long corner;
-  int Hp, Wp, wh, ww, C, h;
-  __device__ __forceinline__ long token(int r) const {
-    const int td = r / (wh * ww), rem = r - td * (wh * ww), th = rem / ww;
-    return corner + (long(td) * Hp + th) * Wp + (rem - th * ww);
-  }
+  const int* rel;
+  int C, h;
+  __device__ __forceinline__ long token(int r) const { return corner + rel[r]; }
   __device__ __forceinline__ long in(int r) const { return token(r) * 3 * C + h * kHd; }
   __device__ __forceinline__ long out(int r) const { return token(r) * C + h * kHd; }
 };

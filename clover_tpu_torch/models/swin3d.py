@@ -53,8 +53,10 @@ from clover_tpu_torch.ops.window_attention import (
     HeadsWindowAttentionFn,
     SpatialWindowAttentionFn,
     WindowAttentionFn,
+    bias_terms,
     flat_from_heads,
     heads_from_flat,
+    mask_terms,
 )
 
 Tuple3 = Tuple[int, int, int]
@@ -311,12 +313,16 @@ def _window_shift_perm_np(dims: Tuple3, window: Tuple3, shift: Tuple3):
 @functools.lru_cache(maxsize=64)
 def _device_constant(kind: str, dims: Tuple3, window: Tuple3, shift: Tuple3,
                      device: torch.device) -> Optional[torch.Tensor]:
-    """The shift permutations, region ids and additive masks (dims: the
-    padded dims on the spatial path) as device tensors, made once per
-    (shape, device) instead of copied from the host at every block. Made
-    outside inference mode even when first asked for under it (the eval
-    step), so that a later train step can save them for its backward."""
+    """The shift permutations, region ids, additive masks and the masks in
+    K9 / K10's accumulator order ('mask_terms') (dims: the padded dims on the
+    spatial path) as device tensors, made once per (shape, device) instead
+    of copied from the host at every block. Made outside inference mode even
+    when first asked for under it (the eval step), so that a later train
+    step can save them for its backward."""
     with torch.inference_mode(False):
+        if kind == "mask_terms":
+            mask = _device_constant("mask", dims, window, shift, device)
+            return None if mask is None else mask_terms(mask, mask.shape[-1])
         if kind in ("region_ids", "mask"):
             fn = _shift_region_ids if kind == "region_ids" else shift_attn_mask
             found = fn(dims, window, shift)
@@ -344,7 +350,10 @@ class WindowAttention3D(nn.Module):
     region ids); (Bn, N, C) the head-layout routes ('pallas' K9, or the
     plain 'xla_headloop' / 'xla', the additive (nW, N, N) mask); (B, Dp,
     Hp, Wp, C) the spatial grid ('pallas_fused' K10, the mask as a (gd, gh,
-    gw, N, N) grid)."""
+    gw, N, N) grid). K9 and K10 take their terms in accumulator order: the
+    mask's from the caller (``mask_terms``, a device constant), the bias's
+    laid out here, and kept in eval while the same bias tensor comes back
+    (the eval bias cache hands each block the same one every forward)."""
 
     def __init__(self, dim: int, full_window: Tuple3, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, kernels: bool = True):
@@ -356,13 +365,26 @@ class WindowAttention3D(nn.Module):
         self.proj = Linear(dim, dim)
         table_len = int(np.prod([2 * w - 1 for w in self.full_window]))
         self.relative_position_bias_table = nn.Parameter(torch.zeros(table_len, num_heads))
+        self._bias_terms = None   # (bias, its terms) of the last eval call
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_(self.relative_position_bias_table, generator)
 
+    def _terms(self, bias: torch.Tensor, mask_terms: Optional[torch.Tensor], N: int):
+        """(bias terms, mask terms) for K9 / K10 on the card, else None."""
+        if not (self.kernels and bias.is_cuda):
+            return None
+        memo = self._bias_terms
+        if memo is None or memo[0] is not bias:
+            with torch.no_grad():
+                memo = (bias, bias_terms(bias, N))
+            self._bias_terms = None if self.training else memo
+        return memo[1], mask_terms
+
     def forward(self, x: torch.Tensor, eff_window: Tuple3, mask: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None, impl: str = "pallas_flat",
-                long_attn: str = "off") -> torch.Tensor:
+                long_attn: str = "off",
+                mask_terms: Optional[torch.Tensor] = None) -> torch.Tensor:
         N = int(np.prod(eff_window))
         if bias is None:
             bias = bias_from_table(self.relative_position_bias_table, self.full_window,
@@ -375,12 +397,14 @@ class WindowAttention3D(nn.Module):
         nH, hd = self.num_heads, self.dim // self.num_heads
         if x.ndim == 5:
             out = SpatialWindowAttentionFn.apply(qkv.view(*x.shape[:4], 3, nH, hd), bias, mask,
-                                                 tuple(eff_window), self.scale, self.kernels)
+                                                 tuple(eff_window), self.scale, self.kernels,
+                                                 self._terms(bias, mask_terms, N))
             return self.proj(out.reshape(x.shape))
         if impl == "pallas":
             # the head relayout and back are PyTorch copies, as on the TPU
             q, k, v = heads_from_flat(qkv.view(-1, 3 * self.dim), nH, N)
-            out = HeadsWindowAttentionFn.apply(q, k, v, bias, mask, self.scale, self.kernels)
+            out = HeadsWindowAttentionFn.apply(q, k, v, bias, mask, self.scale, self.kernels,
+                                               self._terms(bias, mask_terms, N))
             out = flat_from_heads(out).view(x.shape)
         else:
             out = _xla_attention(qkv, bias, mask, self.scale, nH, impl == "xla_headloop")
@@ -452,9 +476,16 @@ class SwinBlock3D(nn.Module):
 
     def _mask(self, impl: str, dims: Tuple3, window: Tuple3, shift: Tuple3, device):
         """The shift mask in the form ``impl``'s route takes: region ids on
-        the flat route, else the additive (nW, N, N) mask."""
-        kind = "region_ids" if impl == "pallas_flat" else "mask"
-        return _device_constant(kind, tuple(dims), tuple(window), tuple(shift), device)
+        the flat route, else the additive (nW, N, N) mask; and, for K9 and
+        K10 ('pallas', 'pallas_fused'), that mask in their accumulator order
+        (else None). -> (mask, mask terms)."""
+        key = (tuple(dims), tuple(window), tuple(shift), device)
+        if impl == "pallas_flat":
+            return _device_constant("region_ids", *key), None
+        terms = None
+        if impl in ("pallas", "pallas_fused") and self.kernels and device.type == "cuda":
+            terms = _device_constant("mask_terms", *key)
+        return _device_constant("mask", *key), terms
 
     def forward(self, x: torch.Tensor, dims: Tuple3, bias: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -468,16 +499,17 @@ class SwinBlock3D(nn.Module):
         N = int(np.prod(window))
         do_shift = any(s > 0 for s in shift)
         fused = impl in ("pallas_flat", "pallas") and fused_attn_enabled(self.fused_attn, N)
-        mask = None
+        mask = terms = None
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
-            mask = self._mask("pallas_flat" if fused else impl, dims, window, shift, x.device)
+            mask, terms = self._mask("pallas_flat" if fused else impl, dims, window, shift,
+                                     x.device)
         if fused:
             x = self._fused_attn_half(x, window, mask, bias, generator)
         else:
             xn = self.norm1(x)
             xn = xn.reshape(-1, C) if impl == "pallas_flat" else xn.reshape(-1, N, C)
-            attn = self.attn(xn, window, mask, bias, impl, self.long_attn).view(B, L, C)
+            attn = self.attn(xn, window, mask, bias, impl, self.long_attn, terms).view(B, L, C)
             x = x + self.drop_path(attn, generator)
         x = self._mlp_half(x, generator)
         if do_shift:
@@ -501,18 +533,18 @@ class SwinBlock3D(nn.Module):
         if any(pad):
             xn = F.pad(xn, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
         do_shift = any(s > 0 for s in shift)
-        mask = None
+        mask = terms = None
         if do_shift:
             xn = torch.roll(xn, (-shift[0], -shift[1], -shift[2]), (1, 2, 3))
-            mask = self._mask(impl, padded, window, shift, x.device)
+            mask, terms = self._mask(impl, padded, window, shift, x.device)
         if impl == "pallas_fused":
             grid = None if mask is None else mask.view(
                 *(p // w for p, w in zip(padded, window)), N, N)
-            out = self.attn(xn, window, grid, bias, impl)
+            out = self.attn(xn, window, grid, bias, impl, mask_terms=terms)
         else:
             xw = window_partition(xn, window)
             xw = xw.reshape(-1, C) if impl == "pallas_flat" else xw
-            out = self.attn(xw, window, mask, bias, impl, self.long_attn)
+            out = self.attn(xw, window, mask, bias, impl, self.long_attn, terms)
             out = window_reverse(out.view(-1, N, C), window, B, *padded)
         if do_shift:
             out = torch.roll(out, shift, (1, 2, 3))

@@ -44,8 +44,8 @@ _SIGNATURES = {
     "clover_attn_block": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),
     "clover_mlp_bwd_rows": (_P,) * 14 + (_I,) * 5 + (_F, _I, _P),
     "clover_mlp_bwd_dw": (_P,) * 10 + (_I,) * 4 + (_F, _P),
-    "clover_window_attention_heads": (_P,) * 6 + (_I,) * 5 + (_F, _P),
-    "clover_window_attention_spatial": (_P,) * 4 + (_I,) * 9 + (_F, _P),
+    "clover_window_attention_heads": (_P,) * 6 + (_I,) * 6 + (_F, _P),
+    "clover_window_attention_spatial": (_P,) * 4 + (_I,) * 10 + (_F, _P),
     "clover_flash_heads": (_P,) * 6 + (_I,) * 4 + (_F, _P),
     "clover_flash_flat": (_P,) * 4 + (_I,) * 4 + (_F, _P),
 }
@@ -161,6 +161,13 @@ def stream(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def sms(device) -> int:
+    """The card's SM count, which the wrappers size their grids by."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptxas_report() -> str:

@@ -270,10 +270,6 @@ def _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g):
             torch.empty_like(x), drs)
 
 
-def _sms(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, with_dw):
     """K7 (with_dw) or K8a: -> (dx, drs, the summed slot as one fp32 buffer)."""
     rows, C = x.shape
@@ -281,7 +277,8 @@ def _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, with_dw
     w1b, w1t, w2t, dx, drs = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
     n_rb = -(-rows // _BWD_ROWS[C])
     stride = 2 * H * C + H + 3 * C if with_dw else 3 * C
-    slots = min(n_rb, max(1, _SLOT_BYTES // (4 * stride)), _sms(x.device)) if with_dw else n_rb
+    slots = (min(n_rb, max(1, _SLOT_BYTES // (4 * stride)), _build.sms(x.device)) if with_dw
+             else n_rb)
     part = torch.empty(slots * stride, dtype=torch.float32, device=x.device)
     out = torch.empty(stride, dtype=torch.float32, device=x.device)
     _build.launch("clover_mlp_bwd_rows", x, ln_w, ln_b, w1b, w1t, b1, w2t, b2, g, row_scale, dx,
@@ -338,7 +335,7 @@ def ln_mlp_bwd_dw(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: st
     w1b, _, w2t, _, _ = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
     chunks = H // (8192 // C)
     # enough (chunk, row group) blocks for two waves on the card's SMs
-    groups = min(-(-rows // _DW_ROWS[C]), max(1, math.ceil(2 * _sms(x.device) / chunks)))
+    groups = min(-(-rows // _DW_ROWS[C]), max(1, math.ceil(2 * _build.sms(x.device) / chunks)))
     stride = 2 * H * C + H
     part = torch.empty(groups * stride, dtype=torch.float32, device=x.device)
     out = torch.empty(stride, dtype=torch.float32, device=x.device)

@@ -36,6 +36,11 @@ The other window-attention forwards of the JAX module:
   (B, Dp, Hp, Wp, 3, nH, hd) qkv grid, the mask as a (gd, gh, gw, N, N)
   grid; the port of ``fused_partition_window_attention``.
   ``SpatialWindowAttentionFn`` adds ``_spatial_bwd``'s plain backward.
+- K9 and K10 read the bias and mask as fp32 in accumulator order
+  (``bias_terms``, ``mask_terms``: one 16-byte load per lane and 8-key
+  tile). The wrappers lay them out, or take them laid out already through
+  ``terms=``: the Swin model caches the mask's as a device constant and,
+  in eval, the bias's beside its bias cache.
 - ``flash_window_attention`` and ``flat_flash_window_attention`` (K11): the
   key-tiled online softmax of ``_forward_long`` (head-major, reached from the
   flat qkv through ``long_window_attention_from_flat``, the port of
@@ -56,6 +61,11 @@ KEY_TILES = (4, 7, 13, 16, 19, 25)   # the kernels' instances: N <= 16 * key til
 # elements: unchunked, stage 0 of the 32-frame train step at B=16 would hold
 # several (2048, 4, 392, 392) fp32 tensors, 5.0 GB each
 _PLAIN_LOGITS = 1 << 27
+
+
+def key_tiles(N: int) -> int:
+    """The 16-key tiles of the kernel instance that takes windows of N tokens."""
+    return next(t for t in KEY_TILES if N <= 16 * t)
 
 
 def region_mask(region_ids: torch.Tensor, dtype) -> torch.Tensor:
@@ -115,18 +125,27 @@ def _attention_plain(qkv2, bias, region_ids, scale: float, num_heads: int, N: in
     return out.permute(0, 2, 1, 3).reshape(M, C)
 
 
-def fragment_bias(bias, N: int, key_tiles: int) -> torch.Tensor:
-    """(nH, N, N) bias -> bf16 in the order the kernel's mma accumulators
-    hold the logits: [h][16-row strip][8-key tile][lane] x 4, lane 4*g + t
-    holding rows g and g+8 of the strip at keys 2t and 2t+1 of the tile.
-    Padded keys get -inf (they drop out of the softmax), padded rows 0."""
-    nH, Np = bias.shape[0], 16 * key_tiles
-    full = torch.zeros((nH, Np, Np), dtype=torch.bfloat16, device=bias.device)
-    full[:, :, N:] = float("-inf")
-    full[:, :N, :N] = bias
+def fragment_terms(t, N: int, key_tiles: int, pad: float, dtype=None) -> torch.Tensor:
+    """(X, N, N) -> the same values, in ``dtype`` (default ``t``'s), in the
+    order the kernels' mma accumulators hold the logits: [x][16-row
+    strip][8-key tile][lane] x 4, lane 4*g + t holding rows g and g+8 of the
+    strip at keys 2t and 2t+1 of the tile, as a (X, strips, tiles, 8, 4, 2,
+    2) tensor. Padded keys get ``pad`` in every row (-inf for a bias: they
+    drop out of the softmax), the rest of the padding 0."""
+    X, Np = t.shape[0], 16 * key_tiles
+    full = torch.zeros((X, Np, Np), dtype=dtype or t.dtype, device=t.device)
+    if pad != 0:
+        full[:, :, N:] = pad
+    full[:, :N, :N] = t
     # row = strip*16 + half*8 + g, key = tile*8 + t*2 + e
-    full = full.view(nH, key_tiles, 2, 8, 2 * key_tiles, 4, 2)
+    full = full.view(X, key_tiles, 2, 8, 2 * key_tiles, 4, 2)
     return full.permute(0, 1, 4, 3, 5, 2, 6).contiguous()
+
+
+def fragment_bias(bias, N: int, key_tiles: int) -> torch.Tensor:
+    """(nH, N, N) bias -> bf16 in accumulator order (:func:`fragment_terms`),
+    -inf in the padded keys: what K1, K5 and K6 read."""
+    return fragment_terms(bias, N, key_tiles, float("-inf"), torch.bfloat16)
 
 
 def window_attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: int,
@@ -212,7 +231,7 @@ def _kernel_shapes(qkv2, bias, region_ids, num_heads: int, N: int):
                          f"rows={M}")
     _build.require(qkv2, "qkv2", torch.bfloat16, dev)
     _check_bias(bias, num_heads, N, dev)
-    return Bn, C, _region_nW(region_ids, Bn, N, dev), next(t for t in KEY_TILES if N <= 16 * t)
+    return Bn, C, _region_nW(region_ids, Bn, N, dev), key_tiles(N)
 
 
 def flat2_window_attention(qkv2, bias, region_ids, scale: float, num_heads: int,
@@ -234,8 +253,7 @@ def flat2_window_attention(qkv2, bias, region_ids, scale: float, num_heads: int,
 def _bwd_chunks(Bn: int, num_heads: int, device) -> int:
     """Window chunks per head for K5: about two blocks per SM in all,
     preferring a divisor of Bn so every block walks as many windows."""
-    target = max(1, 2 * torch.cuda.get_device_properties(device).multi_processor_count
-                 // num_heads)
+    target = max(1, 2 * _build.sms(device) // num_heads)
     for c in range(min(Bn, target), 0, -1):
         if Bn % c == 0 and 2 * c > target:
             return c
@@ -382,19 +400,59 @@ def _heads_kernel_args(q, k, v, bias, mask):
         _build.require(mask, "mask", torch.float32, dev, (nW, N, N))
         if Bn % nW:
             raise ValueError(f"{Bn} windows are not a multiple of nW={nW}")
-    return Bn, nH, N, nW, next(t for t in KEY_TILES if N <= 16 * t)
+    return Bn, nH, N, nW, key_tiles(N)
 
 
-def fused_window_attention(q, k, v, bias, mask, scale: float):
+def bias_terms(bias, N: int) -> torch.Tensor:
+    """K9 and K10's bias term: the fp32 (nH, N, N) bias in accumulator order
+    (:func:`fragment_terms`), -inf in the padded keys."""
+    return fragment_terms(bias, N, key_tiles(N), float("-inf"))
+
+
+def mask_terms(mask, N: int) -> torch.Tensor:
+    """K9 and K10's mask term: the fp32 (nW, N, N) mask in accumulator order,
+    0 in the padding."""
+    return fragment_terms(mask, N, key_tiles(N), 0.0)
+
+
+def _kernel_terms(terms, bias, mask, N: int):
+    """(bias, mask) terms for K9 / K10: those of ``terms`` (a pair, each
+    already in accumulator order or None) and, for each None, the wrapper's
+    layout of ``bias`` / ``mask`` (None without a mask), each checked
+    against the shape the kernel reads."""
+    bt, mt = (None, None) if terms is None else terms
+    bt = bias_terms(bias, N) if bt is None else bt
+    mt = None if mask is None else (mask_terms(mask, N) if mt is None else mt)
+    tile = (key_tiles(N), 2 * key_tiles(N), 8, 4, 2, 2)
+    _build.require(bt, "bias terms", torch.float32, bias.device, (bias.shape[0], *tile))
+    if mask is not None:
+        _build.require(mt, "mask terms", torch.float32, bias.device, (mask.shape[0], *tile))
+    return bt, mt
+
+
+def windows_per_block(windows: int, num_heads: int, sms: int) -> int:
+    """Windows a K9 / K10 block walks on a card of ``sms`` SMs: the most, up
+    to 16, that still leave four blocks for each of the card's block slots
+    (two an SM: 192 registers a thread at 13 key tiles), so the grid fills
+    the card and its last wave is short."""
+    return max(1, min(16, windows * num_heads // (8 * sms)))
+
+
+def fused_window_attention(q, k, v, bias, mask, scale: float, terms=None):
     """softmax(scale * q k^T + bias (+ mask)) v: q, k, v (Bn, nH, N, hd)
     bf16 -> (Bn, nH, N, hd); bias (nH, N, N) fp32; mask (nW, N, N) fp32
-    additive or None (window b takes row b % nW)."""
+    additive or None (window b takes row b % nW). ``terms``: (bias terms,
+    mask terms) already in accumulator order (:func:`bias_terms`,
+    :func:`mask_terms`), either None for the wrapper to lay out; the model
+    passes its cached forms."""
     if not q.is_cuda:
         return window_attention_heads_plain(q, k, v, bias, mask, scale)
-    Bn, nH, N, nW, key_tiles = _heads_kernel_args(q, k, v, bias, mask)
+    Bn, nH, N, nW, kt = _heads_kernel_args(q, k, v, bias, mask)
+    bt, mt = _kernel_terms(terms, bias, mask, N)
     out = torch.empty_like(q)
-    _build.launch("clover_window_attention_heads", q, k, v, bias, mask, out, Bn, N, nH, nW,
-                  key_tiles, float(scale), _build.stream(q.device))
+    _build.launch("clover_window_attention_heads", q, k, v, bt, mt, out, Bn, N, nH, nW, kt,
+                  windows_per_block(Bn, nH, _build.sms(q.device)), float(scale),
+                  _build.stream(q.device))
     fused_window_attention.launches += 1
     return out
 
@@ -403,14 +461,18 @@ class HeadsWindowAttentionFn(torch.autograd.Function):
     """``fused_window_attention`` with ``_bwd``'s plain backward: K9 forward
     (``kernels=True``; its plain version for CPU tensors) or the plain
     version. dbias and dmask come back fp32, in the bias's and the mask's
-    dtypes.
+    dtypes. ``terms``: K9's (bias terms, mask terms), as
+    :func:`fused_window_attention` takes them.
 
-    ``HeadsWindowAttentionFn.apply(q, k, v, bias, mask, scale, kernels)``"""
+    ``HeadsWindowAttentionFn.apply(q, k, v, bias, mask, scale, kernels[,
+    terms])``"""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, scale, kernels):
-        fwd = fused_window_attention if kernels else window_attention_heads_plain
-        out = fwd(q, k, v, bias, mask, scale)
+    def forward(ctx, q, k, v, bias, mask, scale, kernels, terms=None):
+        if kernels:
+            out = fused_window_attention(q, k, v, bias, mask, scale, terms)
+        else:
+            out = window_attention_heads_plain(q, k, v, bias, mask, scale)
         ctx.save_for_backward(q, k, v, bias, mask)
         ctx.scale = scale
         return out
@@ -421,7 +483,7 @@ class HeadsWindowAttentionFn(torch.autograd.Function):
         dq, dk, dv, dbias, dmask = window_attention_heads_bwd_plain(q, k, v, bias, mask, g,
                                                                     ctx.scale)
         dmask = None if mask is None else dmask.to(mask.dtype)
-        return dq, dk, dv, dbias.to(bias.dtype), dmask, None, None
+        return dq, dk, dv, dbias.to(bias.dtype), dmask, None, None, None
 
 
 # ------------------------------------------------------ K10: spatial grid (#9)
@@ -463,11 +525,14 @@ def spatial_window_attention_plain(qkv5, bias, mask_grid, window, scale: float):
     return _grid_reverse(out.transpose(1, 2), window, B, Dp, Hp, Wp)
 
 
-def spatial_window_attention(qkv5, bias, mask_grid, window, scale: float):
+def spatial_window_attention(qkv5, bias, mask_grid, window, scale: float, terms=None):
     """Window attention straight on the padded spatial grid: qkv5 (B, Dp,
     Hp, Wp, 3, nH, hd) bf16, padded and (for a shifted block) rolled; bias
     (nH, N, N) fp32; mask_grid (gd, gh, gw, N, N) fp32 additive or None ->
-    (B, Dp, Hp, Wp, nH, hd). Dp, Hp, Wp are multiples of the window."""
+    (B, Dp, Hp, Wp, nH, hd). Dp, Hp, Wp are multiples of the window.
+    ``terms``: as :func:`fused_window_attention`'s, the mask's of its
+    (gd * gh * gw, N, N) rows: tile w is the window at grid position (i, j,
+    k), w = (i * gh + j) * gw + k."""
     if not qkv5.is_cuda:
         return spatial_window_attention_plain(qkv5, bias, mask_grid, window, scale)
     B, Dp, Hp, Wp, three, nH, hd = qkv5.shape
@@ -480,13 +545,16 @@ def spatial_window_attention(qkv5, bias, mask_grid, window, scale: float):
                          f"{tuple(qkv5.shape)}, window {tuple(window)}")
     _build.require(qkv5, "qkv5", torch.bfloat16, dev)
     _build.require(bias, "bias", torch.float32, dev, (nH, N, N))
+    grid = (Dp // wd) * (Hp // wh) * (Wp // ww)
     if mask_grid is not None:
         _build.require(mask_grid, "mask_grid", torch.float32, dev,
                        (Dp // wd, Hp // wh, Wp // ww, N, N))
+    bt, mt = _kernel_terms(terms, bias, None if mask_grid is None else mask_grid.view(-1, N, N),
+                           N)
     out = torch.empty((B, Dp, Hp, Wp, nH, hd), dtype=qkv5.dtype, device=dev)
-    _build.launch("clover_window_attention_spatial", qkv5, bias, mask_grid, out, B, Dp, Hp, Wp,
-                  wd, wh, ww, nH, next(t for t in KEY_TILES if N <= 16 * t), float(scale),
-                  _build.stream(dev))
+    _build.launch("clover_window_attention_spatial", qkv5, bt, mt, out, B, Dp, Hp, Wp, wd, wh,
+                  ww, nH, key_tiles(N), windows_per_block(B * grid, nH, _build.sms(dev)),
+                  float(scale), _build.stream(dev))
     spatial_window_attention.launches += 1
     return out
 
@@ -495,15 +563,18 @@ class SpatialWindowAttentionFn(torch.autograd.Function):
     """``spatial_window_attention`` with ``_spatial_bwd``'s math (the
     backward of the partitioned reference): K10 forward (``kernels=True``;
     its plain version for CPU tensors) or the plain version; dqkv5 in the
-    grid layout, dbias fp32, the mask grid's gradient.
+    grid layout, dbias fp32, the mask grid's gradient. ``terms``: K10's
+    (bias terms, mask terms), as :func:`spatial_window_attention` takes them.
 
     ``SpatialWindowAttentionFn.apply(qkv5, bias, mask_grid, window, scale,
-    kernels)``"""
+    kernels[, terms])``"""
 
     @staticmethod
-    def forward(ctx, qkv5, bias, mask_grid, window, scale, kernels):
-        fwd = spatial_window_attention if kernels else spatial_window_attention_plain
-        out = fwd(qkv5, bias, mask_grid, window, scale)
+    def forward(ctx, qkv5, bias, mask_grid, window, scale, kernels, terms=None):
+        if kernels:
+            out = spatial_window_attention(qkv5, bias, mask_grid, window, scale, terms)
+        else:
+            out = spatial_window_attention_plain(qkv5, bias, mask_grid, window, scale)
         ctx.save_for_backward(qkv5, bias, mask_grid)
         ctx.args = (tuple(window), scale)
         return out
@@ -522,7 +593,7 @@ class SpatialWindowAttentionFn(torch.autograd.Function):
         dqkv = torch.stack([dq, dk, dv], dim=2).transpose(1, 3)   # (Bn, N, 3, nH, hd)
         dqkv5 = _grid_reverse(dqkv, window, B, Dp, Hp, Wp)
         dmask = None if mask_grid is None else dmask.view(mask_grid.shape).to(mask_grid.dtype)
-        return dqkv5, dbias.to(bias.dtype), dmask, None, None, None
+        return dqkv5, dbias.to(bias.dtype), dmask, None, None, None, None
 
 
 # ------------------------------------------------ K11: key-tiled flash (#10, #11)

@@ -17,7 +17,9 @@ tests run it (Pallas interpret mode), in fp32:
 - (e') DropPath on the spatial layout, port only; (f) the config refusals.
 
 The ``gpu`` tests launch K9, K10 and K11 against their plain versions at
-the Swin-B shapes and skip without a card: ``python -m pytest
+the Swin-B shapes (K9 and K10 also with a bias of magnitude ~10 and a mask
+of arbitrary fp32 values, at N=392 and on grids too small to fill the
+card, one launch a call) and skip without a card: ``python -m pytest
 tests/test_torch_spatial.py -m gpu --noconftest`` (JAX is imported inside
 the tests that compare with it).
 """
@@ -365,46 +367,79 @@ def _shift_mask(dims, window, shift, dev):
     return torch.from_numpy(pswin.shift_attn_mask(dims, window, shift)).to(dev)
 
 
+def _terms(rng, shift_mask, nH, N, dev, wild):
+    """The bias and mask a kernel test feeds: a unit-normal bias and the
+    0 / -100 shift mask, or (``wild``) a bias of magnitude ~10 and a mask of
+    arbitrary fp32 values, which any rounding to bf16 or any region-id
+    shortcut would get wrong."""
+    bias = _f32(rng, (nH, N, N), dev) * (10.0 if wild else 1.0)
+    if shift_mask is None or not wild:
+        return bias, shift_mask
+    return bias, _f32(rng, tuple(shift_mask.shape), dev) * 10.0
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("wild", [False, True])
 @pytest.mark.parametrize("dims,window,shift,nH", [
     ((4, 14, 14), (4, 7, 7), (0, 3, 3), 4),     # 8-frame stage 0, N=196
-    ((4, 7, 7), (4, 7, 7), (0, 0, 0), 32),      # 8-frame stage 3
+    ((4, 7, 7), (4, 7, 7), (0, 0, 0), 32),      # 8-frame stage 3: a grid too small to fill the card
     ((16, 14, 14), (8, 7, 7), (4, 3, 3), 4),    # N=392, 25 key tiles
     ((3, 14, 14), (3, 7, 7), (0, 3, 3), 2),     # N=147: odd rows of bias and mask
 ])
-def test_heads_kernel_on_card(cuda, dims, window, shift, nH):
+def test_heads_kernel_on_card(cuda, dims, window, shift, nH, wild):
     rng = np.random.default_rng(20)
     N = int(np.prod(window))
     mask = _shift_mask(dims, window, shift, cuda) if any(shift) else None
     nW = 1 if mask is None else mask.shape[0]
     q, k, v = (_bf16(rng, (2 * nW, nH, N, HD), cuda) for _ in range(3))
-    bias = _f32(rng, (nH, N, N), cuda)
+    bias, mask = _terms(rng, mask, nH, N, cuda, wild)
     before = ops.fused_window_attention.launches
     got = ops.fused_window_attention(q, k, v, bias, mask, HD ** -0.5)
     torch.cuda.synchronize()
     assert ops.fused_window_attention.launches == before + 1
     _close(got, pwa.window_attention_heads_plain(q, k, v, bias, mask, HD ** -0.5))
+    terms = (pwa.bias_terms(bias, N), None if mask is None else pwa.mask_terms(mask, N))
+    assert torch.equal(ops.fused_window_attention(q, k, v, bias, mask, HD ** -0.5, terms), got)
+    assert ops.fused_window_attention.launches == before + 2
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dims,window,shift", [
-    ((4, 64, 64), (4, 7, 7), (0, 3, 3)),        # the 256^2 clip's stage 0, padded to 70
-    ((4, 8, 8), (4, 7, 7), (0, 0, 0)),          # its stage 3, padded to 14
-    ((4, 56, 56), (4, 7, 7), (0, 3, 3)),        # 224^2, no padding
+@pytest.mark.parametrize("wild", [False, True])
+@pytest.mark.parametrize("B,dims,window,shift,nH", [
+    (2, (4, 64, 64), (4, 7, 7), (0, 3, 3), 4),     # the 256^2 clip's stage 0, padded to 70
+    (2, (4, 8, 8), (4, 7, 7), (0, 0, 0), 4),       # its stage 3, padded to 14
+    (4, (4, 8, 8), (4, 7, 7), (0, 0, 0), 32),      # E8P's stage 3: too small to fill the card
+    (2, (4, 56, 56), (4, 7, 7), (0, 3, 3), 4),     # 224^2, no padding
+    (1, (16, 56, 56), (8, 7, 7), (4, 3, 3), 4),    # 32 frames: 8 x 7 x 7 windows, N=392
 ])
-def test_spatial_kernel_on_card(cuda, dims, window, shift):
+def test_spatial_kernel_on_card(cuda, B, dims, window, shift, nH, wild):
     rng = np.random.default_rng(21)
     padded = tuple(-(-d // w) * w for d, w in zip(dims, window))
-    N, nH = int(np.prod(window)), 4
+    N = int(np.prod(window))
     mask = _shift_mask(padded, window, shift, cuda) if any(shift) else None
+    bias, mask = _terms(rng, mask, nH, N, cuda, wild)
     grid = None if mask is None else mask.view(*(p // w for p, w in zip(padded, window)), N, N)
-    qkv5 = _bf16(rng, (2, *padded, 3, nH, HD), cuda)
-    bias = _f32(rng, (nH, N, N), cuda)
+    qkv5 = _bf16(rng, (B, *padded, 3, nH, HD), cuda)
     before = ops.spatial_window_attention.launches
     got = ops.spatial_window_attention(qkv5, bias, grid, window, HD ** -0.5)
     torch.cuda.synchronize()
     assert ops.spatial_window_attention.launches == before + 1
     _close(got, pwa.spatial_window_attention_plain(qkv5, bias, grid, window, HD ** -0.5))
+
+
+@pytest.mark.gpu
+def test_attention_keeps_its_bias_terms_in_eval_on_card(cuda):
+    """The model lays out K9 / K10's bias terms once per bias tensor in eval
+    (the bias cache's), and anew for every call in training."""
+    attn = pswin.WindowAttention3D(64, (2, 7, 7), 2).to(cuda)
+    bias = _f32(np.random.default_rng(24), (2, 98, 98), cuda)
+    first = attn.eval()._terms(bias, None, 98)
+    assert attn._terms(bias, None, 98)[0] is first[0]
+    assert torch.equal(first[0], pwa.bias_terms(bias, 98))
+    assert attn._terms(bias.clone(), None, 98)[0] is not first[0]
+    attn.train()
+    assert attn._terms(bias, None, 98)[0] is not attn._terms(bias, None, 98)[0]
+    assert attn._bias_terms is None
 
 
 @pytest.mark.gpu
