@@ -641,6 +641,7 @@ def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
 
     from clover_tpu_torch import ops
     from clover_tpu_torch.models.swin3d import _shift_region_ids
+    from clover_tpu_torch.ops.bwd_sweep import launch_ms
 
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -675,6 +676,8 @@ def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
             qkv, bias, rid, grad, scale, nH, N)
         (dqkv, dbias), (rdqkv, rdbias) = kb(), pb()
         t_k, t_p = cuda_ms(kb, 5), cuda_ms(pb, 2)
+        print(f"K5 launches {label} (device ms per call, torch.profiler): " + "; ".join(
+            f"{n} {t:.4f}" for n, t in launch_ms(kb, 3).items()), flush=True)
         record("K5", "flat2_window_attention_bwd", label, dqkv, rdqkv, t_k, t_p, count5, "dqkv",
                work=attention_work(Bn, N, nH, ids, products=5, row_widths=7, dbias=True),
                lib=lib_b)
@@ -882,12 +885,12 @@ def drive_train_path(model, batches, dev, make=make_train_step):
 
 
 PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wins
+    ("K5 window-attention backward", ("wa_bwd_",)),   # row pass, key pass, finish
     ("K6a LN1 + qkv + attention", ("attn_block_attention_kernel",)),
     ("K6b proj + residual", ("attn_block_proj_kernel",)),
     ("K11 key-tiled window attention", ("flash_window_attention_kernel",)),
     ("K9 / K10 head-major, grid attention", ("window_attention_heads_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),
-    ("K5 window-attention backward", ("window_attention_bwd_kernel", "dbias_finish")),
     ("K3 / K3M post-LN FFN", ("mlp_kernel<32, 768, false>", "postln_finish")),
     ("K7 / K8a MLP backward, row kernel", ("bwd_rows_kernel", "sum_slots")),
     ("K8b MLP backward, dW kernel", ("bwd_dw_kernel",)),

@@ -40,7 +40,9 @@ from clover_tpu_torch.ops.window_attention import (  # noqa: F401
     long_window_attention_from_flat,
     spatial_window_attention,
     spatial_window_attention_plain,
+    window_attention_bwd_keys_plain,
     window_attention_bwd_plain,
+    window_attention_bwd_rows_plain,
     window_attention_flat_flash_plain,
     window_attention_heads_bwd_plain,
     window_attention_heads_plain,

@@ -11,7 +11,12 @@ same function on a (Bn, N, 3C) view of the same memory).
 ``flat2_window_attention_bwd(qkv2, bias, region_ids, g2, scale, num_heads,
 N) -> (dqkv2, dbias)`` is its backward (K5), the port of ``_backward_flat2``
 (and ``_backward_flat``): the softmax recomputed from qkv2, dbias (nH, N, N)
-fp32 summed over the windows, no gradient for the mask.
+fp32 summed over the windows, no gradient for the mask. It is three
+launches: a row pass (dq and each query's logsumexp and rowsum(dp * P)), a
+key pass (dk, dv, and dbias shares held on chip across the windows a block
+walks) and a finish that sums the shares; ``_bwd_grid`` sizes them, and
+``window_attention_bwd_rows_plain`` / ``window_attention_bwd_keys_plain``
+are the two passes in plain PyTorch.
 ``WindowAttentionFn`` ties the two into autograd. At N=392 (the 32-frame
 8x7x7 window) the same kernels, at 25 key tiles, also stand for the TPU's
 head-group forms ``_forward_flat_grouped`` and ``_backward_flat_grouped``:
@@ -50,6 +55,8 @@ The other window-attention forwards of the JAX module:
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -170,10 +177,13 @@ def window_attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_hea
     return dqkv2, dbias
 
 
-def _attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int):
+def _bwd_operands(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int):
+    """What every form of the backward recomputes, in fp32 (float64 for
+    float64 inputs): qs = q * scale rounded to the compute dtype, k, v and
+    the output gradient g as (Bn, nH, N, hd), and the logits (Bn, nH, N,
+    N) with the bias and the region mask."""
     M, threeC = qkv2.shape
-    C = threeC // 3
-    hd = C // num_heads
+    hd = threeC // 3 // num_heads
     Bn = M // N
     dt = qkv2.dtype
     acc = torch.promote_types(dt, torch.float32)
@@ -186,9 +196,23 @@ def _attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: in
         nW = mask.shape[0]
         logits = (logits.view(Bn // nW, nW, num_heads, N, N)
                   + mask[None, :, None]).view(Bn, num_heads, N, N)
+    gh = g2.view(Bn, N, num_heads, hd).permute(0, 2, 1, 3).to(acc)
+    return qs, k, v, gh, logits
+
+
+def _heads_to_rows(t, dt):
+    """(Bn, nH, N, hd) -> (Bn*N, nH*hd) in ``dt``."""
+    Bn, nH, N, hd = t.shape
+    return t.to(dt).permute(0, 2, 1, 3).reshape(Bn * N, nH * hd)
+
+
+def _attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int):
+    M, threeC = qkv2.shape
+    dt = qkv2.dtype
+    qs, k, v, gh, logits = _bwd_operands(qkv2, bias, region_ids, g2, scale, num_heads, N)
+    acc = logits.dtype
     p32 = torch.softmax(logits, dim=-1)
     del logits
-    gh = g2.view(Bn, N, num_heads, hd).permute(0, 2, 1, 3).to(acc)
     dv = torch.matmul(p32.to(dt).to(acc).transpose(-1, -2), gh)
     dp = torch.matmul(gh, v.transpose(-1, -2))
     dlog = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
@@ -199,6 +223,40 @@ def _attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: in
     dbias = dlog.sum(0)
     dqkv = torch.stack([dq, dk, dv]).to(dt)               # (3, Bn, nH, N, hd)
     return dqkv.permute(1, 3, 0, 2, 4).reshape(M, threeC), dbias
+
+
+def window_attention_bwd_rows_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: int,
+                                    N: int):
+    """K5's row pass in plain PyTorch, on all windows at once (for the
+    tests' shapes): -> (dq (Bn*N, C) in qkv2's dtype,
+    stats (Bn, nH, N, 2) fp32 (float64 for float64 inputs), each query's
+    logsumexp of the logits and rowsum(dp * P))."""
+    qs, k, v, gh, logits = _bwd_operands(qkv2, bias, region_ids, g2, scale, num_heads, N)
+    acc = logits.dtype
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    p = torch.exp(logits - lse)
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    D = (dp * p).sum(-1, keepdim=True)
+    dlog = (p * (dp - D)).to(qkv2.dtype).to(acc)
+    dq = torch.matmul(dlog, k) * scale
+    return _heads_to_rows(dq, qkv2.dtype), torch.cat([lse, D], dim=-1)
+
+
+def window_attention_bwd_keys_plain(qkv2, bias, region_ids, g2, stats, scale: float,
+                                    num_heads: int, N: int):
+    """K5's key pass in plain PyTorch from the row pass's ``stats``, on all
+    windows at once: P = exp(logits - logsumexp), dlog = P * (dp - D) ->
+    (dk, dv (Bn*N, C) in qkv2's dtype, dbias (nH, N, N) summed over the
+    windows, fp32 or float64)."""
+    dt = qkv2.dtype
+    qs, k, v, gh, logits = _bwd_operands(qkv2, bias, region_ids, g2, scale, num_heads, N)
+    acc = logits.dtype
+    p = torch.exp(logits - stats[..., :1].to(acc))
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    dlog = p * (dp - stats[..., 1:].to(acc))
+    dv = torch.matmul(p.to(dt).to(acc).transpose(-1, -2), gh)
+    dk = torch.matmul(dlog.to(dt).to(acc).transpose(-1, -2), qs)
+    return _heads_to_rows(dk, dt), _heads_to_rows(dv, dt), dlog.sum(0)
 
 
 def _check_bias(bias, num_heads: int, N: int, dev) -> None:
@@ -250,14 +308,76 @@ def flat2_window_attention(qkv2, bias, region_ids, scale: float, num_heads: int,
     return out
 
 
-def _bwd_chunks(Bn: int, num_heads: int, device) -> int:
-    """Window chunks per head for K5: about two blocks per SM in all,
-    preferring a divisor of Bn so every block walks as many windows."""
-    target = max(1, 2 * _build.sms(device) // num_heads)
-    for c in range(min(Bn, target), 0, -1):
-        if Bn % c == 0 and 2 * c > target:
-            return c
-    return min(Bn, target)
+# K5's blocks, mirrored from csrc/window_attention_bwd.cu: a row-pass block
+# is 8 warps, one 16-row query strip each, three blocks an SM; a key-pass
+# block is 2 key tiles x 8 strip groups, 16 warps, one block an SM
+_ROW_WARPS, _KEY_TILES, _KEY_STRIP_GROUPS, _KEY_BLOCKS_PER_SM = 8, 2, 8, 1
+_LD = 40   # the staged tiles' row stride in bf16
+
+
+class BwdGrid(NamedTuple):
+    """K5's launch shape (:func:`_bwd_grid`)."""
+    row_groups: int        # row pass: query-strip groups of a window (grid x)
+    key_groups: int        # key pass: pairs of 16-key tiles (grid x)
+    chunks: int            # key pass: windows b = c, c + chunks, ... a block walks
+    row_blocks: int        # blocks of each pass
+    key_blocks: int
+    row_smem: int          # shared memory of a block, bytes
+    key_smem: int
+    stats_bytes: int       # the row statistics, (Bn, nH, 16 key tiles) x (fp32, fp32)
+    workspace_bytes: int   # the key pass's dbias shares, chunks x nH x 16 strips x Np fp32
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _bwd_grid(Bn: int, num_heads: int, N: int, sms: int) -> BwdGrid:
+    """K5's grid on a card of ``sms`` SMs. The row pass takes a block per
+    (strip group, window, head). The key pass's blocks hold their dbias
+    share across the windows they walk, so its grid is nH x key groups x
+    chunks; the chunks are picked from at least one block per SM to about
+    four waves, for the fewest windows a block slot walks (whole waves x
+    windows a block), the fewest chunks on a tie: fewer shares to write and
+    sum."""
+    kt = key_tiles(N)
+    Np, strips = 16 * kt, -(-N // 16)
+    tile = lambda rows: _align128(2 * rows * _LD * 2)   # noqa: E731  two bf16 tiles
+    row_groups = -(-strips // _ROW_WARPS)
+    key_groups = -(-strips // _KEY_TILES)
+    per_chunk, slots = num_heads * key_groups, _KEY_BLOCKS_PER_SM * sms
+    hi = min(Bn, max(1, -(-4 * slots // per_chunk)))
+    lo = min(hi, -(-slots // per_chunk))
+    chunks = min(range(lo, hi + 1),
+                 key=lambda c: (-(-per_chunk * c // slots) * -(-Bn // c), c))
+    key_buf = _align128(tile(Np) + tile(16 * _KEY_TILES) + Np * 12)
+    return BwdGrid(row_groups, key_groups, chunks, row_groups * Bn * num_heads,
+                   per_chunk * chunks, tile(Np) + Np * 4,
+                   2 * key_buf + _KEY_TILES * _KEY_STRIP_GROUPS * 32 * 32 * 4,
+                   Bn * num_heads * Np * 8, chunks * num_heads * strips * 16 * Np * 4)
+
+
+def _bwd_launch(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int):
+    """K5's three launches (row pass, key pass, finish) on CUDA tensors ->
+    (dqkv2, dbias, stats): stats (Bn, nH, 16 key tiles, 2) fp32 is the row
+    pass's (logsumexp, rowsum(dp * P)) per query, (+inf, 0) in the padded
+    rows of each strip, unwritten past the last strip."""
+    Bn, C, nW, kt = _kernel_shapes(qkv2, bias, region_ids, num_heads, N)
+    M, dev = qkv2.shape[0], qkv2.device
+    _build.require(g2, "g2", torch.bfloat16, dev, (M, C))
+    bias_r = fragment_bias(bias, N, kt)
+    bias_c = fragment_bias(bias.transpose(1, 2), N, kt)
+    grid = _bwd_grid(Bn, num_heads, N, _build.sms(dev))
+    Np, strips = 16 * kt, -(-N // 16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    stats = torch.empty((Bn, num_heads, Np, 2), **f32)
+    part = torch.empty((grid.chunks, num_heads, 16 * strips, Np), **f32)
+    dqkv2 = torch.empty_like(qkv2)
+    dbias = torch.empty((num_heads, N, N), **f32)
+    _build.launch("clover_window_attention_bwd", qkv2, g2, bias_r, bias_c, region_ids, dqkv2,
+                  stats, part, dbias, Bn, N, num_heads, nW, kt, grid.row_groups,
+                  grid.key_groups, grid.chunks, float(scale), _build.stream(dev))
+    return dqkv2, dbias, stats
 
 
 def flat2_window_attention_bwd(qkv2, bias, region_ids, g2, scale: float, num_heads: int,
@@ -266,20 +386,7 @@ def flat2_window_attention_bwd(qkv2, bias, region_ids, g2, scale: float, num_hea
     (Bn*N, C): -> (dqkv2 (Bn*N, 3C), dbias (nH, N, N) fp32)."""
     if not qkv2.is_cuda:
         return window_attention_bwd_plain(qkv2, bias, region_ids, g2, scale, num_heads, N)
-    Bn, C, nW, key_tiles = _kernel_shapes(qkv2, bias, region_ids, num_heads, N)
-    M, dev = qkv2.shape[0], qkv2.device
-    _build.require(g2, "g2", torch.bfloat16, dev, (M, C))
-    bias_r = fragment_bias(bias, N, key_tiles)
-    bias_c = fragment_bias(bias.transpose(1, 2), N, key_tiles)
-    chunks = _bwd_chunks(Bn, num_heads, dev)
-    Np = 16 * key_tiles
-    # each chunk's dbias partial; the kernel writes it before it reads it
-    part = torch.empty((chunks, num_heads, Np, Np), dtype=torch.float32, device=dev)
-    dqkv2 = torch.empty_like(qkv2)
-    dbias = torch.empty((num_heads, N, N), dtype=torch.float32, device=dev)
-    _build.launch("clover_window_attention_bwd", qkv2, g2, bias_r, bias_c, region_ids, dqkv2,
-                  part, dbias, Bn, N, num_heads, nW, key_tiles, chunks, float(scale),
-                  _build.stream(dev))
+    dqkv2, dbias, _ = _bwd_launch(qkv2, bias, region_ids, g2, scale, num_heads, N)
     flat2_window_attention_bwd.launches += 1
     return dqkv2, dbias
 

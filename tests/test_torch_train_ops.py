@@ -23,6 +23,7 @@ import torch
 from clover_tpu_torch import ops
 from clover_tpu_torch.models import swin3d as pswin
 from clover_tpu_torch.models.layers import DropPath, dropout
+from clover_tpu_torch.ops import window_attention as wa
 
 
 @pytest.fixture
@@ -262,21 +263,51 @@ def test_window_attention_kernel_at_294_on_card(cuda, masked):
     _close(got, ops.window_attention_plain(qkv, bias, ids, 32 ** -0.5, 8, N), 2e-2, 1e-2)
 
 
+# K5's card shapes: (Bn, nH, token dims, window, shift) at N = 196 (Bn = 44,
+# which the key pass's 9 chunks do not divide), 294 (the 12-frame stage 1
+# block, 3 chunks for 32 windows), 392 at the 32-frame step's stage 3 (32
+# windows, 32 heads) and 392 on 2 windows of 4 heads, whose key pass has
+# fewer blocks (104) than the card has SMs
+_BWD_CARD = {"196": (44, 8, (4, 14, 14), (4, 7, 7), (2, 3, 3)),
+             "294": (32, 8, _DIMS12, _WIN12, _SHIFT12),
+             "392 stage 3": (32, 32, (16, 7, 7), (8, 7, 7), (4, 0, 0)),
+             "392 small": (2, 4, (16, 7, 7), (8, 7, 7), (4, 0, 0))}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("masked", [False, True])
-def test_window_attention_bwd_kernel_on_card(cuda, masked):
-    """K5 against its plain version (dqkv and dbias), and dbias bitwise equal
-    over two runs: its chunk partials are summed in a fixed order."""
-    N, qkv, bias, g, ids = _attn12(np.random.default_rng(31), 8, cuda, masked)
+@pytest.mark.parametrize("shape", list(_BWD_CARD))
+def test_window_attention_bwd_kernel_on_card(cuda, masked, shape):
+    """K5 against its plain version (dqkv, and dbias within chip_smoke.py's
+    fp32 limit) with a bias of magnitude ~10, the row pass's statistics
+    against the plain row pass, one launch counted per call, and dqkv and
+    dbias bitwise equal over two calls: each dbias element has one owner
+    in the key pass and the finish sums the chunks in a fixed order."""
+    Bn, nH, dims, win, shift = _BWD_CARD[shape]
+    N = int(np.prod(win))
+    rng = np.random.default_rng(31)
+    C, scale = nH * 32, 32 ** -0.5
+    qkv = torch.from_numpy(rng.normal(size=(Bn * N, 3 * C)).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    g = torch.from_numpy(rng.normal(size=(Bn * N, C)).astype(np.float32)).to(cuda, torch.bfloat16)
+    bias = torch.from_numpy(rng.normal(size=(nH, N, N)).astype(np.float32) * 10).to(cuda)
+    ids = pswin._shift_region_ids(dims, win, shift) if masked else None
+    ids = None if ids is None else torch.from_numpy(ids).to(cuda)
     before = ops.flat2_window_attention_bwd.launches
-    dqkv, dbias = ops.flat2_window_attention_bwd(qkv, bias, ids, g, 32 ** -0.5, 8, N)
-    dqkv2, dbias2 = ops.flat2_window_attention_bwd(qkv, bias, ids, g, 32 ** -0.5, 8, N)
+    dqkv, dbias = ops.flat2_window_attention_bwd(qkv, bias, ids, g, scale, nH, N)
+    dqkv2, dbias2 = ops.flat2_window_attention_bwd(qkv, bias, ids, g, scale, nH, N)
     torch.cuda.synchronize()
     assert ops.flat2_window_attention_bwd.launches == before + 2
-    want_dqkv, want_dbias = ops.window_attention_bwd_plain(qkv, bias, ids, g, 32 ** -0.5, 8, N)
+    want_dqkv, want_dbias = ops.window_attention_bwd_plain(qkv, bias, ids, g, scale, nH, N)
     _close(dqkv, want_dqkv, 2e-2, 2e-2)
-    _close(dbias, want_dbias, 2e-2, 2e-2)
+    _close(dbias, want_dbias, 0.0, 1e-5)
     assert torch.equal(dbias, dbias2) and torch.equal(dqkv, dqkv2)
+    _, _, stats = wa._bwd_launch(qkv, bias, ids, g, scale, nH, N)
+    _, want_stats = ops.window_attention_bwd_rows_plain(qkv, bias, ids, g, scale, nH, N)
+    _close(stats[:, :, :N], want_stats, 0.0, 1e-5)
+    if shape == "196":
+        assert Bn % wa._bwd_grid(Bn, nH, N, torch.cuda.get_device_properties(
+            cuda).multi_processor_count).chunks
 
 
 @pytest.mark.gpu
