@@ -3,13 +3,13 @@
 // one (window, head) staged in shared memory (Np = 16 * KT rows, zero
 // padded, row stride kLd). Shared by K1 (window_attention.cu), K6's
 // attention pass (attn_block.cu), K9 / K10 (window_attention_heads.cu) and,
-// its logits / exp / P.V steps on one key tile, K11
+// its online-softmax step on one key tile (strip_online), K11
 // (window_attention_flash.cu). What is added to the scaled logits is a
 // template parameter ("terms": add(n-tile, l[4])), and so is where a strip's
 // output rows go ("out": row(q)): K1's bf16 bias in accumulator order and
-// region ids (RegionTerms), K9 / K10's fp32 bias and fp32 additive mask,
-// both in accumulator order (FragTerms), K11's bf16 bias and region ids on
-// a key tile.
+// region ids (RegionTerms; K11 reads the same, a key tile at a time), K9 /
+// K10's fp32 bias and fp32 additive mask, both in accumulator order
+// (FragTerms).
 //
 // A warp keeps its strip's 16 x Np logits in mma.sync (m16n8k16, bf16 in,
 // fp32 accumulate) accumulators: a thread holds two rows, so the row max
@@ -31,24 +31,44 @@ namespace wa {
 constexpr int kHd = 32;
 constexpr int kLd = kHd + 8;  // row stride of the staged q/k/v: no ldmatrix bank conflicts
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// e^x, or 2^x for logits kept in log2 units: the same ex2.approx that
+// __expf runs, without its multiply by log2(e)
+template <bool kLog2>
+__device__ __forceinline__ float softmax_exp(float x) {
+  if constexpr (kLog2) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
+  } else {
+    return __expf(x);
+  }
+}
+
 // K1's terms of strip s: the head's bias in accumulator order (-inf in the
 // padded keys; bias_s is this lane's entry of n-tile 0) and, for shifted
-// blocks, -100 where a key's region id (id_s, shared memory) is not the row's
+// blocks, -100 where a key's region id (id_s, shared memory) is not the
+// row's. kLog2 (K11): both in log2 units, times log2(e), the bias in the
+// same FMA, for logits scaled by scale * log2(e).
+template <bool kLog2 = false>
 struct RegionTerms {
   const uint2* bias_s;
   const int* id_s;
   bool masked;
   int id0, id1, tq;  // region ids of this lane's rows q0, q1; its column pair
   __device__ __forceinline__ void add(int nt, float (&l)[4]) const {
+    constexpr float u = kLog2 ? kLog2e : 1.f;
     const uint2 bv = bias_s[nt * 32];  // rows q0, q1 x keys k, k+1
     const float2 bq0 = bf16x2_to_float2(bv.x), bq1 = bf16x2_to_float2(bv.y);
-    l[0] += bq0.x, l[1] += bq0.y, l[2] += bq1.x, l[3] += bq1.y;
+    l[0] = fmaf(bq0.x, u, l[0]), l[1] = fmaf(bq0.y, u, l[1]);
+    l[2] = fmaf(bq1.x, u, l[2]), l[3] = fmaf(bq1.y, u, l[3]);
     if (masked) {
       const int2 idk = *reinterpret_cast<const int2*>(id_s + nt * 8 + tq * 2);
-      if (idk.x != id0) l[0] -= 100.f;
-      if (idk.y != id0) l[1] -= 100.f;
-      if (idk.x != id1) l[2] -= 100.f;
-      if (idk.y != id1) l[3] -= 100.f;
+      if (idk.x != id0) l[0] -= 100.f * u;
+      if (idk.y != id0) l[1] -= 100.f * u;
+      if (idk.x != id1) l[2] -= 100.f * u;
+      if (idk.y != id1) l[3] -= 100.f * u;
     }
   }
 };
@@ -141,9 +161,9 @@ __device__ __forceinline__ void strip_logits(float (&sc)[NTH][4], const unsigned
   }
 }
 
-// sc <- exp(sc - row max) in place (exp(-inf) = 0 for padded keys); this
-// lane's sums of its two rows
-template <int NTH>
+// sc <- exp(sc - row max) in place (exp(-inf) = 0 for padded keys; 2^ for
+// kLog2); this lane's sums of its two rows
+template <int NTH, bool kLog2 = false>
 __device__ __forceinline__ void strip_exp(float (&sc)[NTH][4], float m0, float m1, float& sum0,
                                           float& sum1) {
   sum0 = 0.f, sum1 = 0.f;
@@ -151,8 +171,8 @@ __device__ __forceinline__ void strip_exp(float (&sc)[NTH][4], float m0, float m
   for (int i = 0; i < NTH; ++i) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      sc[i][e] = __expf(sc[i][e] - m0);
-      sc[i][2 + e] = __expf(sc[i][2 + e] - m1);
+      sc[i][e] = softmax_exp<kLog2>(sc[i][e] - m0);
+      sc[i][2 + e] = softmax_exp<kLog2>(sc[i][2 + e] - m1);
       sum0 += sc[i][e];
       sum1 += sc[i][2 + e];
     }
@@ -185,6 +205,27 @@ __device__ __forceinline__ void strip_pv(float (&o)[4][4], const float (&sc)[2 *
 template <int KT>
 constexpr int kStripParts = KT <= 16 ? 1 : (KT + 9) / 10;
 
+// One online-softmax step over KS 16-key steps from step j0: the running
+// row max m and sum (m = -inf, sum = 0 before the first) updated, o
+// rescaled by exp(m_old - m_new) and the unnormalised P.V added (kLog2:
+// logits and m in log2 units, 2^ for exp)
+template <int KS, bool kLog2 = false, class Terms>
+__device__ __forceinline__ void strip_online(float (&o)[4][4], const unsigned (&qa)[2][4],
+                                             const bf16* ks, const bf16* vs, const Terms& terms,
+                                             int j0, int lane, float scale, float& m0, float& m1,
+                                             float& sum0, float& sum1) {
+  float sc[2 * KS][4], n0, n1, t0, t1;
+  strip_logits<2 * KS>(sc, qa, ks, terms, 2 * j0, lane, scale, n0, n1);
+  n0 = fmaxf(m0, quad_max(n0)), n1 = fmaxf(m1, quad_max(n1));
+  const float f0 = softmax_exp<kLog2>(m0 - n0), f1 = softmax_exp<kLog2>(m1 - n1);
+#pragma unroll
+  for (int d = 0; d < 4; ++d) o[d][0] *= f0, o[d][1] *= f0, o[d][2] *= f1, o[d][3] *= f1;
+  strip_exp<2 * KS, kLog2>(sc, n0, n1, t0, t1);
+  sum0 = sum0 * f0 + t0, sum1 = sum1 * f1 + t1;
+  m0 = n0, m1 = n1;
+  strip_pv<KS>(o, sc, 1.f, 1.f, vs, j0, lane);
+}
+
 // part p of P of the key steps (the first parts take the remainder), with
 // the running row max m and sum carried from the parts before it
 template <int KT, int P, int p, class Terms>
@@ -193,23 +234,15 @@ __device__ __forceinline__ void strip_part(float (&o)[4][4], const unsigned (&qa
                                            int lane, float scale, float& m0, float& m1,
                                            float& sum0, float& sum1) {
   constexpr int J0 = (p * KT + P - 1) / P, KS = ((p + 1) * KT + P - 1) / P - J0;
-  float sc[2 * KS][4];
   if constexpr (p == 0) {
+    float sc[2 * KS][4];
     strip_logits<2 * KS>(sc, qa, ks, terms, 0, lane, scale, m0, m1);
     m0 = quad_max(m0), m1 = quad_max(m1);
     strip_exp<2 * KS>(sc, m0, m1, sum0, sum1);
+    strip_pv<KS>(o, sc, 1.f, 1.f, vs, 0, lane);
   } else {
-    float n0, n1, t0, t1;
-    strip_logits<2 * KS>(sc, qa, ks, terms, 2 * J0, lane, scale, n0, n1);
-    n0 = fmaxf(m0, quad_max(n0)), n1 = fmaxf(m1, quad_max(n1));
-    const float f0 = __expf(m0 - n0), f1 = __expf(m1 - n1);
-#pragma unroll
-    for (int d = 0; d < 4; ++d) o[d][0] *= f0, o[d][1] *= f0, o[d][2] *= f1, o[d][3] *= f1;
-    strip_exp<2 * KS>(sc, n0, n1, t0, t1);
-    sum0 = sum0 * f0 + t0, sum1 = sum1 * f1 + t1;
-    m0 = n0, m1 = n1;
+    strip_online<KS>(o, qa, ks, vs, terms, J0, lane, scale, m0, m1, sum0, sum1);
   }
-  strip_pv<KS>(o, sc, 1.f, 1.f, vs, J0, lane);
   if constexpr (p + 1 < P) {
     strip_part<KT, P, p + 1>(o, qa, ks, vs, terms, lane, scale, m0, m1, sum0, sum1);
   }
@@ -269,8 +302,8 @@ __device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, con
                                              int s, int lane, int N, float scale, bf16* out_b,
                                              int ldo) {
   const int q0 = s * 16 + (lane >> 2);
-  const RegionTerms terms{bias_h + long(s) * 2 * KT * 32 + lane, id_s, masked,
-                          masked ? id_s[q0] : 0, masked ? id_s[q0 + 8] : 0, lane & 3};
+  const RegionTerms<> terms{bias_h + long(s) * 2 * KT * 32 + lane, id_s, masked,
+                            masked ? id_s[q0] : 0, masked ? id_s[q0 + 8] : 0, lane & 3};
   attend_strip_with<KT>(qs, ks, vs, terms, s, lane, N, scale, RowStride{out_b, ldo});
 }
 

@@ -21,8 +21,6 @@ the build is ``_build``'s.
 from __future__ import annotations
 
 import subprocess
-import tempfile
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,24 +30,13 @@ from torch.autograd import DeviceType
 from clover_tpu_torch.models.swin3d import _shift_region_ids, effective_window
 from clover_tpu_torch.ops import _build
 from clover_tpu_torch.ops import window_attention as wa
+from clover_tpu_torch.ops.heads_sweep import cuda_ms, ptxas_lines
 
 CLIPS, SIZE = 16, 224
 PATHS = {"12f": 12, "32f": 32, "pretrain": 8}   # frames; Swin-B, patch (2, 4, 4)
 DEPTHS, HEADS, WINDOW = (2, 2, 18, 2), (4, 8, 16, 32), (8, 7, 7)
 PEAK_BF16, PEAK_BYTES = 989e12, 3.35e12
 TOL = {"dqkv": (2e-2, 2e-2), "dbias": (0.0, 1e-5)}
-
-
-def cuda_ms(fn, reps=5):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def kernel_ms(fn, reps=5):
@@ -75,16 +62,6 @@ def _short(name):
 def launch_ms(fn, reps=5):
     """K5's launches alone in one call of ``fn``: {kernel: ms per call}."""
     return {_short(name): ms for name, ms in kernel_ms(fn, reps).items() if "wa_bwd_" in name}
-
-
-def ptxas_lines():
-    src = _build.CSRC / "window_attention_bwd.cu"
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                               str(Path(tmp) / "bwd.o"), str(src)], capture_output=True,
-                              text=True, check=True)
-    return [ln.split(":", 1)[-1].strip() for ln in proc.stderr.splitlines()
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
 
 def step_shapes(frames):
@@ -132,7 +109,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     _build.library()
-    print("\n".join(ptxas_lines()))
+    print("\n".join(ptxas_lines("window_attention_bwd.cu")))
     g = torch.Generator(device=dev).manual_seed(0)
     scale = 32 ** -0.5
     sms = _build.sms(dev)

@@ -46,12 +46,12 @@ def cuda_ms(fn, reps=5):
     return start.elapsed_time(end) / reps
 
 
-def ptxas_lines():
-    src = _build.CSRC / "window_attention_heads.cu"
+def ptxas_lines(source):
+    """Each kernel's registers and spills in ``csrc/<source>`` (nvcc -Xptxas -v)."""
     with tempfile.TemporaryDirectory() as tmp:
         proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
-                               str(Path(tmp) / "heads.o"), str(src)], capture_output=True,
-                              text=True, check=True)
+                               str(Path(tmp) / "k.o"), str(_build.CSRC / source)],
+                              capture_output=True, text=True, check=True)
     return [ln.split(":", 1)[-1].strip() for ln in proc.stderr.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
 
@@ -79,7 +79,7 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     _build.library()
-    print("\n".join(ptxas_lines()))
+    print("\n".join(ptxas_lines("window_attention_heads.cu")))
     g = torch.Generator(device=dev).manual_seed(0)
     scale = 32 ** -0.5
     sms = _build.sms(dev)

@@ -50,8 +50,11 @@ The other window-attention forwards of the JAX module:
   key-tiled online softmax of ``_forward_long`` (head-major, reached from the
   flat qkv through ``long_window_attention_from_flat``, the port of
   ``_forward_long_from_flat``) and ``_forward_flat_flash`` (the flat qkv),
-  bias rounded to the compute dtype, the mask as region ids. They feed the
-  forward of ``WindowAttentionFn`` (``long_attn``); its backward stays K5.
+  bias rounded to the compute dtype, the mask as region ids. The kernel
+  reads K1's terms (the bf16 bias in accumulator order at ceil(N / 16)
+  16-key steps, the region ids) and walks only those steps; ``flash_grid``
+  mirrors its launch shape. They feed the forward of ``WindowAttentionFn``
+  (``long_attn``); its backward stays K5.
 """
 
 from __future__ import annotations
@@ -706,6 +709,31 @@ class SpatialWindowAttentionFn(torch.autograd.Function):
 # ------------------------------------------------ K11: key-tiled flash (#10, #11)
 
 FLASH_KEYS = 64   # K11's key tile: the plain versions take the same online-softmax steps
+# K11's block, mirrored from csrc/window_attention_flash.cu: 5 warps, one
+# 16-row query strip each (N=392's 25 strips in 5 blocks); K / V tiles of
+# FLASH_KEYS rows and their region ids in a double buffer
+_FLASH_WARPS = 5
+
+
+class FlashGrid(NamedTuple):
+    """K11's launch shape (:func:`flash_grid`)."""
+    rows: int              # query rows a block: a 16-row strip a warp
+    query_tiles: int       # blocks of one (window, head)
+    grid: tuple            # (windows x query tiles, heads)
+    key_steps: tuple       # 16-key steps of each key tile; the last one's may be fewer
+    smem: int              # static shared memory of a block, bytes (any N: within 48 KB)
+
+
+def flash_grid(Bn: int, num_heads: int, N: int) -> FlashGrid:
+    """K11's grid for Bn windows of N tokens and ``num_heads`` heads. A block
+    takes 80 query rows (strips past N only stage) and walks the keys in
+    tiles of FLASH_KEYS up to 16 * ceil(N / 16): whole tiles, then the last
+    one's remaining 16-key steps."""
+    rows, strips, per = 16 * _FLASH_WARPS, -(-N // 16), FLASH_KEYS // 16
+    q_tiles = -(-N // rows)
+    steps = tuple(min(per, strips - j) for j in range(0, strips, per))
+    smem = (rows + 2 * 2 * FLASH_KEYS) * _LD * 2 + 2 * FLASH_KEYS * 4
+    return FlashGrid(rows, q_tiles, (Bn * q_tiles, num_heads), steps, smem)
 
 
 def _flash_plain(q, k, v, bias, region_ids, scale: float, tile: int = FLASH_KEYS):
@@ -772,9 +800,14 @@ def window_attention_flat_flash_plain(qkv2, bias, region_ids, scale: float, num_
 
 
 def _flash_kernel_args(bias, region_ids, Bn: int, nH: int, N: int, dev):
-    """Check the bias and region ids K11 takes; -> (bf16 bias, nW)."""
+    """Check the launch and the bias and region ids K11 takes; -> (the bf16
+    bias in accumulator order at ceil(N / 16) key steps, nW)."""
+    grid = flash_grid(Bn, nH, N)
+    if grid.grid[0] > 2 ** 31 - 1 or grid.grid[1] > 65535:
+        raise ValueError(f"flash window attention: grid {grid.grid} past the card's limits "
+                         f"(Bn={Bn}, nH={nH}, N={N})")
     _check_bias(bias, nH, N, dev)
-    return bias.to(torch.bfloat16).contiguous(), _region_nW(region_ids, Bn, N, dev)
+    return fragment_bias(bias, N, sum(grid.key_steps)), _region_nW(region_ids, Bn, N, dev)
 
 
 def flash_window_attention(q, k, v, bias, region_ids, scale: float):
@@ -788,9 +821,9 @@ def flash_window_attention(q, k, v, bias, region_ids, scale: float):
         raise ValueError(f"flash window attention takes head dim 32, got {hd}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _build.require(t, name, torch.bfloat16, q.device, (Bn, nH, N, hd))
-    bias_c, nW = _flash_kernel_args(bias, region_ids, Bn, nH, N, q.device)
+    bias_f, nW = _flash_kernel_args(bias, region_ids, Bn, nH, N, q.device)
     out = torch.empty_like(q)
-    _build.launch("clover_flash_heads", q, k, v, bias_c, region_ids, out, Bn, N, nH, nW,
+    _build.launch("clover_flash_heads", q, k, v, bias_f, region_ids, out, Bn, N, nH, nW,
                   float(scale), _build.stream(q.device))
     flash_window_attention.launches += 1
     return out
@@ -808,9 +841,9 @@ def flat_flash_window_attention(qkv2, bias, region_ids, scale: float, num_heads:
         raise ValueError(f"flash window attention takes head dim 32 and whole windows; got "
                          f"C={C}, heads={num_heads}, N={N}, rows={M}")
     _build.require(qkv2, "qkv2", torch.bfloat16, qkv2.device)
-    bias_c, nW = _flash_kernel_args(bias, region_ids, M // N, num_heads, N, qkv2.device)
+    bias_f, nW = _flash_kernel_args(bias, region_ids, M // N, num_heads, N, qkv2.device)
     out = torch.empty((M, C), dtype=qkv2.dtype, device=qkv2.device)
-    _build.launch("clover_flash_flat", qkv2, bias_c, region_ids, out, M // N, N, num_heads, nW,
+    _build.launch("clover_flash_flat", qkv2, bias_f, region_ids, out, M // N, N, num_heads, nW,
                   float(scale), _build.stream(qkv2.device))
     flat_flash_window_attention.launches += 1
     return out

@@ -6,8 +6,9 @@ strip][8-key tile][lane] x 4, lane 4g + t holding rows g and g+8 of the
 strip at keys 2t and 2t+1 of the tile. These tests unpack that layout in
 the kernels' read order and compare it exactly, in fp32, with the (X, N, N)
 terms at every N the Swin-B windows give the kernels (98, 147, 196, 392 at
-7, 13, 13, 25 key tiles); check the padding (-inf in the bias's padded keys,
-0 in the rest); check that the mask terms the Swin model caches are, tile
+7, 13, 13, 25 key tiles) and past K1's 400 keys, where K11 alone goes
+(401, 448, 520 at ceil(N / 16)); check the padding (-inf in the bias's
+padded keys, 0 in the rest); check that the mask terms the Swin model caches are, tile
 for tile, the (gd, gh, gw, N, N) mask grid K10's windows take, one tensor
 per (dims, window, shift, device); read logits from the fragment form with
 plain PyTorch, exactly equal to ``_heads_logits``; and check the wrappers'
@@ -25,7 +26,8 @@ from clover_tpu_torch.models import swin3d as pswin
 from clover_tpu_torch.ops import _build
 from clover_tpu_torch.ops import window_attention as pwa
 
-SHAPES = [(98, 7), (147, 13), (196, 13), (392, 25)]   # N, key tiles
+# N, key tiles: K9 / K10's; then K11's ceil(N / 16) past K1's 400 keys
+SHAPES = [(98, 7), (147, 13), (196, 13), (392, 25), (401, 26), (448, 28), (520, 33)]
 PADS = {"bias": float("-inf"), "mask": 0.0}
 
 
@@ -45,12 +47,16 @@ def _unpack(frag):
 
 def _terms(kind, X, N, key_tiles, seed):
     """Random fp32 terms: a bias, or a mask of arbitrary values (not 0 /
-    -100); -> (terms, their fragment form as the wrappers lay it out)."""
-    assert pwa.key_tiles(N) == key_tiles
+    -100); -> (terms, their fragment form as the wrappers lay it out: K9 /
+    K10's up to N = 400, past it at ``key_tiles``, as K11 lays out its
+    bias)."""
     t = torch.from_numpy(np.random.default_rng(seed).normal(size=(X, N, N)).astype(np.float32))
-    if kind == "bias":
-        return t, pwa.bias_terms(t, N)
-    return t * 50, pwa.mask_terms(t * 50, N)
+    t = t if kind == "bias" else t * 50
+    if N > 16 * pwa.KEY_TILES[-1]:
+        assert key_tiles == -(-N // 16)
+        return t, pwa.fragment_terms(t, N, key_tiles, PADS[kind])
+    assert pwa.key_tiles(N) == key_tiles
+    return t, (pwa.bias_terms if kind == "bias" else pwa.mask_terms)(t, N)
 
 
 @pytest.mark.parametrize("kind", ["bias", "mask"])

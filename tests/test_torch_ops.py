@@ -136,9 +136,10 @@ def test_window_attention_matches_pallas(route, mask_form, jx, monkeypatch):
         assert calls, "flat2 did not fall back to _forward_flat"
 
 
-@pytest.mark.parametrize("N,key_tiles", [(98, 7), (196, 13)])
+# K1 / K5 / K6 tile counts; then K11 only, past K1's 400 keys, at ceil(N / 16)
+@pytest.mark.parametrize("N,key_tiles", [(98, 7), (196, 13), (401, 26), (448, 28), (520, 33)])
 def test_fragment_bias_is_the_kernel_accumulator_order(N, key_tiles):
-    """The kernel reads bias[h][strip][tile][lane] as rows (g, g+8) x keys
+    """The kernels read bias[h][strip][tile][lane] as rows (g, g+8) x keys
     (2t, 2t+1) of the strip and tile, lane = 4g + t: -inf past N keys, 0
     past N rows, values rounded to bf16."""
     from clover_tpu_torch.ops.window_attention import fragment_bias

@@ -9,8 +9,9 @@ tests run it (Pallas interpret mode), in fp32:
   ``_forward_v2`` (v2, v4), with and without a mask and with a window block
   W < nW; ``spatial_window_attention_plain`` against
   ``fused_partition_window_attention``; the key-tiled plain versions
-  against ``_forward_long_from_flat`` and ``_forward_flat_flash`` at N=150
-  (a partial tile). Tolerance 2e-5, fp32 summation order.
+  against ``_forward_long_from_flat`` and ``_forward_flat_flash`` at N=72,
+  128, 150 and 196 (the last key tile partial or full). Tolerance 2e-5,
+  fp32 summation order.
 - (b) ``HeadsWindowAttentionFn`` and ``SpatialWindowAttentionFn`` against
   ``jax.grad`` through ``fused_window_attention`` / ``spatial_window_attention``
   (the mask's gradient included), 1e-4 as the JAX package's own test.
@@ -144,16 +145,22 @@ def test_spatial_plain_matches_pallas(masked, jx):
 
 # ----------------------------------------------------------------- (a) K11
 
+# the keys in the port's last 64-key tile: 8, 64 (full), 22, 4
+LONG_N = [72, 128, 150, 196]
+
+
 @pytest.mark.parametrize("route", ["v6", "v7"])
 @pytest.mark.parametrize("masked", [False, True])
-def test_long_plain_matches_pallas(route, masked, jx):
+@pytest.mark.parametrize("N", LONG_N)
+def test_long_plain_matches_pallas(N, route, masked, jx):
     """The key-tiled plain versions on the flat qkv against
-    _forward_long_from_flat (v6) and _forward_flat_flash (v7) at N=150: the
-    JAX kernels' 128-key tiles and the port's 64 both end in a partial
-    tile. The port's region ids against the JAX additive mask built from
-    them; the bias and mask rounded to the compute dtype on both sides."""
+    _forward_long_from_flat (v6) and _forward_flat_flash (v7): the JAX
+    kernels take 128-key tiles, the port 64, and N puts the end of the last
+    tile at each place (LONG_N; at N=128 both end in a full tile). The
+    port's region ids against the JAX additive mask built from them; the
+    bias and mask rounded to the compute dtype on both sides."""
     rng = np.random.default_rng(3)
-    Bn, nH, N, nW = 4, 2, 150, 2
+    Bn, nH, nW = 4, 2, 2
     C = nH * HD
     qkv = rng.normal(size=(Bn, N, 3 * C)).astype(np.float32)
     bias = rng.normal(size=(nH, N, N)).astype(np.float32)
@@ -173,12 +180,13 @@ def test_long_plain_matches_pallas(route, masked, jx):
     np.testing.assert_allclose(got.numpy(), full.numpy(), **TOL)
 
 
-def test_long_heads_plain_matches_forward_long(jx):
+@pytest.mark.parametrize("N", LONG_N)
+def test_long_heads_plain_matches_forward_long(N, jx):
     """window_attention_long_plain on head-major q, k, v against
     _forward_long, the TPU's head-major flash kernel, with a region mask."""
     rng = np.random.default_rng(4)
-    q, k, v, bias, _ = _heads_inputs(rng, Bn=4, N=150, masked=False)
-    ids = rng.integers(0, 3, size=(2, 150)).astype(np.int32)
+    q, k, v, bias, _ = _heads_inputs(rng, Bn=4, N=N, masked=False)
+    ids = rng.integers(0, 3, size=(2, N)).astype(np.int32)
     mask = pwa.region_mask(torch.from_numpy(ids), torch.float32).numpy()
     scale = HD ** -0.5
     ref = jx.wa._forward_long(*(jx.jnp.asarray(a) for a in (q, k, v, bias, mask)), scale)
@@ -443,8 +451,9 @@ def test_attention_keeps_its_bias_terms_in_eval_on_card(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N,nH,masked", [(392, 4, True), (392, 32, False), (150, 2, True),
-                                         (33, 2, False)])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("N,nH", [(17, 2), (33, 2), (64, 2), (72, 2), (150, 2), (384, 4),
+                                  (385, 4), (392, 4), (392, 32), (400, 8)])
 def test_flash_kernels_on_card(cuda, N, nH, masked):
     rng = np.random.default_rng(22)
     nW = 4
