@@ -68,8 +68,8 @@ Phases, in order; any failure raises and exits non-zero:
 8d. the 32-frame pretrain step under the TPU's remat recipe (bench.py's
    BENCH_FRAMES=32 BENCH_REMAT=0,1: B=8 clips of 32 x 224^2, the blocks of
    Swin stages 0-1 rematerialised, the MLP stash off, every Swin MLP
-   backward through K7, the one-pass recompute backward): K7 at the four
-   stage shapes against the plain recompute backward (dx within K2's
+   backward through K7, the recompute backward as GEMM passes): K7 at the
+   four stage shapes against the plain recompute backward (dx within K2's
    limits; each fp32 output's error against the plain version run in fp32
    at most BWD_ERR_RATIO x the bf16 plain version's; two launches bitwise
    equal), K2's training form without the stash, K6, K1, K5 and K3M (13024
@@ -892,7 +892,8 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
     ("K9 / K10 head-major, grid attention", ("window_attention_heads_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),
     ("K3 / K3M post-LN FFN", ("mlp_kernel<32, 768, false>", "postln_finish")),
-    ("K7 / K8a MLP backward, row kernel", ("bwd_rows_kernel", "sum_slots")),
+    ("K7 recompute MLP backward, passes", ("k7_",)),
+    ("K8a MLP backward, row kernel", ("bwd_rows_kernel", "sum_slots")),
     ("K8b MLP backward, dW kernel", ("bwd_dw_kernel",)),
     ("K2 / K2 stash MLP halves", ("mlp_kernel",)),
     ("K4 LayerNorm", ("layer_norm_kernel",)),
@@ -1496,7 +1497,7 @@ def main(argv=None) -> int:
                "K6": ("csrc/attn_block.cu", "clover_tpu/ops/attn_block.py:489"),
                "K3M": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:418"),
                "K2T": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
-               "K7": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:942"),
+               "K7": ("csrc/mlp_block_bwd_passes.cu", "clover_tpu/ops/mlp_block.py:942"),
                "K8a": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:1008"),
                "K8b": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:1008")}
     # at N=392 the TPU runs the attention and its backward as the head-group

@@ -1,4 +1,4 @@
-// K7 and K8a/K8b: the recompute backward of the Swin MLP half
+// K8a/K8b: the recompute backward of the Swin MLP half
 //
 //   out = x + s * (gelu(LN(x) W1^T + b1) W2^T + b2)
 //
@@ -13,33 +13,26 @@
 // g is bf16, so g W2 and g^T bf16(s h) take it exactly: the row scale is
 // applied in fp32 to u and folded into the one rounding of s h.
 //
-// K7 replaces clover_tpu/ops/mlp_block.py::_backward_onepass
-// (_kernel_bwd_onepass*, tanh or erf); K8a and K8b replace ::_backward_pallas
-// (_kernel_bwd_dx* and _kernel_bwd_dw*, erf only).
+// K8a and K8b replace clover_tpu/ops/mlp_block.py::_backward_pallas
+// (_kernel_bwd_dx* and _kernel_bwd_dw*, erf only). K7, the one-pass form
+// (::_backward_onepass), is csrc/mlp_block_bwd_passes.cu.
 //
-// Bound on the H100: the products are 10 * rows * C * H flops (12 where the
-// TPU kernel forms h W2^T for drs; here drs rides on u) against ~6 * rows *
-// C bytes of activations: compute-bound on the tensor cores. The TPU kernel
+// Bound on the H100: K8a's products are 6 * rows * C * H flops (z, u, dy;
+// drs rides on u, where the TPU kernel forms h W2^T) and K8b's 8 (z, u, dW1,
+// dW2), against ~6 * rows * C bytes of activations: compute-bound on the
+// tensor cores. The TPU kernel
 // accumulates dW1 / dW2 in VMEM across a sequential grid; blocks here run
 // at the same time, and the two directions of accumulation (dy over the
 // hidden, the parameter gradients over the rows) are what each design
 // answers.
 //
-// K7 (one pass, row kernel with kDW): a persistent block walks row blocks of
-// R rows; per row block it stages y = LN(x) and g as bf16 in shared memory
-// and walks the hidden in chunks of 64. A chunk's z and u are two mma.sync
-// products in registers (warps 2 x 4 over rows x chunk columns), GELU,
-// gelu', dz and the drs terms are formed there, bf16(dz) and bf16(s h) go
-// to shared memory, dy accumulates in registers over the chunks (as K2's
-// output does), and the chunk's dW1 / dW2 rows (64 x C, in 128-column
-// tiles, K = R rows through transposed ldmatrix) and db1 are added into the
-// block's own fp32 slice of device memory: one slice a block, no atomics.
-// A second kernel sums the slices in a fixed order, so two runs give the
-// same bits. The slices' read-modify-write, 16 C H bytes a row block, is
-// K7's cost: 0.75 R flops a byte of it.
-// K8a (row kernel without kDW): the same walk with no parameter gradients,
-// one block a row block: dx, drs and fixed-order partials of dscale /
-// dbias / db2.
+// K8a (row kernel): a block per row block of R rows stages y = LN(x) and g
+// as bf16 in shared memory and walks the hidden in chunks of 64. A chunk's
+// z and u are two mma.sync products in registers (warps 2 x 4 over rows x
+// chunk columns), GELU, gelu', dz and the drs terms are formed there,
+// bf16(dz) goes to shared memory, and dy accumulates in registers over the
+// chunks (as K2's output does): dx, drs and fixed-order partials of dscale
+// / dbias / db2.
 // K8b (dW kernel): a block owns a hidden chunk of HC = 8192 / C columns and
 // a group of row blocks; per row block it recomputes LN, z and u for its
 // chunk (the 8 warps split the K = C sum, added in shared memory in a fixed
@@ -161,17 +154,15 @@ struct RowTiling {
   static constexpr size_t y = 0;
   static constexpr size_t gs = align128(y + size_t(R) * ld * sizeof(bf16));
   static constexpr size_t dz = align128(gs + size_t(R) * ld * sizeof(bf16));
-  static constexpr size_t hs = align128(dz + size_t(R) * ldh * sizeof(bf16));
-  static constexpr size_t f = align128(hs + size_t(R) * ldh * sizeof(bf16));
-  // floats: s, mean, rstd, g.b2 [R]; row sums [3][4][R]; column sums [2][2][C]; db1 [2][64]
-  static constexpr size_t smem = f + (size_t(16) * R + 4 * C + 2 * kChunk) * sizeof(float);
-  static_assert(R % 32 == 0 && C % 128 == 0, "2 x 4 warps; 128-column dW tiles");
+  static constexpr size_t f = align128(dz + size_t(R) * ldh * sizeof(bf16));
+  // floats: s, mean, rstd, g.b2 [R]; row sums [3][4][R]; column sums [2][2][C]
+  static constexpr size_t smem = f + (size_t(16) * R + 4 * C) * sizeof(float);
+  static_assert(R % 32 == 0 && C % 128 == 0, "2 x 4 warps");
 };
 
-// Row kernel: K7 (kDW) or K8a. Block b owns slot b of `part` (slot_stride
-// floats: with kDW [dW1 H x C as (j, c)][dW2^T H x C as (j, c)][db1 H], then
-// always [dscale C][dbias C][db2 C]) and walks row blocks b, b + gridDim.x, ...
-template <int R, int C, bool kDW>
+// K8a's row kernel. Block b owns slot b of `part` (slot_stride floats:
+// [dscale C][dbias C][db2 C]) and walks row blocks b, b + gridDim.x, ...
+template <int R, int C>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
                 const float* __restrict__ ln_b, const bf16* __restrict__ w1,
@@ -186,19 +177,16 @@ bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
   bf16* y_s = reinterpret_cast<bf16*>(smem + T::y);
   bf16* g_s = reinterpret_cast<bf16*>(smem + T::gs);
   bf16* dz_s = reinterpret_cast<bf16*>(smem + T::dz);
-  bf16* hs_s = reinterpret_cast<bf16*>(smem + T::hs);
   float* s_s = reinterpret_cast<float*>(smem + T::f);
   float* mean_s = s_s + R;
   float* rstd_s = mean_s + R;
   float* gb2_s = rstd_s + R;
   float* rowred = gb2_s + R;           // [3][4][R]: dy.w, dy.w.xn, drs per warp column
   float* colred = rowred + 12 * R;     // [2][2][C]: dscale, dbias per warp row
-  float* db1red = colred + 4 * C;      // [2][64]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 2, wn = warp & 3, gq = lane >> 2, tq = lane & 3;
   const int n_rb = (rows + R - 1) / R;
-  float* slot = part + blockIdx.x * slot_stride;
-  float* tail = slot + (kDW ? 2L * H * C + H : 0);
+  float* tail = part + blockIdx.x * slot_stride;
 
   for (int rb = blockIdx.x; rb < n_rb; rb += gridDim.x) {
     const bool first = rb == (int)blockIdx.x;
@@ -249,8 +237,7 @@ bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
           }
         }
       }
-      // GELU, gelu', dz and the drs terms in registers; bf16(dz), bf16(s h) -> shared
-      float dbc[2][2] = {};
+      // GELU, gelu', dz and the drs terms in registers; bf16(dz) -> shared
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
 #pragma unroll
@@ -260,33 +247,18 @@ bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
             const int col = wn * 16 + n * 8 + 2 * tq;
-            float dzv[2], hsv[2];
+            float dzv[2];
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const float z = zacc[m][n][2 * hh + e] + b1[j0 + col + e];
               const float u = uacc[m][n][2 * hh + e];
               const float h = gelu_f(z, tanh_approx);
               dzv[e] = s * u * gelu_grad(z, tanh_approx);
-              hsv[e] = s * h;
               drs_part[m][hh] += h * u;
-              dbc[n][e] += dzv[e];
             }
             *reinterpret_cast<unsigned*>(dz_s + r * ldh + col) = pack_bf16(dzv[0], dzv[1]);
-            if (kDW) *reinterpret_cast<unsigned*>(hs_s + r * ldh + col) = pack_bf16(hsv[0], hsv[1]);
           }
         }
-      }
-      if (kDW) {  // db1: the chunk column's dz over this warp's rows, then over the two warp rows
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            float v = dbc[n][e];
-            v += __shfl_xor_sync(0xffffffffu, v, 4);
-            v += __shfl_xor_sync(0xffffffffu, v, 8);
-            v += __shfl_xor_sync(0xffffffffu, v, 16);
-            if (gq == 0) db1red[wm * kChunk + wn * 16 + n * 8 + 2 * tq + e] = v;
-          }
       }
       __syncthreads();
 
@@ -306,66 +278,7 @@ bwd_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
         }
       }
 
-      if (kDW) {
-        // the chunk's rows of dW1 (dz^T y) and dW2^T ((s h)^T g), 64 x C in
-        // 128-column tiles, K = the R rows; added into this block's slice
-#pragma unroll 1
-        for (int which = 0; which < 2; ++which) {
-          const bf16* at = which == 0 ? dz_s : hs_s;
-          const bf16* bt = which == 0 ? y_s : g_s;
-          float* sec = slot + (long)which * H * C;
-#pragma unroll 1
-          for (int ct = 0; ct < C; ct += 128) {
-            float acc[2][4][4];
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int n = 0; n < 4; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
-#pragma unroll
-            for (int kk = 0; kk < R; kk += 16) {
-              unsigned a[2][4];
-#pragma unroll
-              for (int i = 0; i < 2; ++i)
-                ldmatrix_x4_trans(a[i], b_tile_row(at + kk * ldh + wm * 32 + i * 16, ldh, lane));
-#pragma unroll
-              for (int np = 0; np < 2; ++np) {
-                unsigned b[4];
-                ldmatrix_x4_trans(b, a_tile_row(bt + kk * ld + ct + wn * 32 + np * 16, ld, lane));
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                  mma_bf16(acc[i][2 * np], a[i], b[0], b[1]);
-                  mma_bf16(acc[i][2 * np + 1], a[i], b[2], b[3]);
-                }
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < 2; ++i)
-#pragma unroll
-              for (int hh = 0; hh < 2; ++hh) {
-                const long j = j0 + wm * 32 + i * 16 + gq + hh * 8;
-#pragma unroll
-                for (int n = 0; n < 4; ++n) {
-                  float2* p = reinterpret_cast<float2*>(sec + j * C + ct + wn * 32 + n * 8 + 2 * tq);
-                  float2 v = make_float2(acc[i][n][2 * hh], acc[i][n][2 * hh + 1]);
-                  if (!first) {
-                    const float2 o = *p;
-                    v.x += o.x;
-                    v.y += o.y;
-                  }
-                  *p = v;
-                }
-              }
-          }
-        }
-        if (threadIdx.x < kChunk) {
-          float* p = slot + 2L * H * C + j0 + threadIdx.x;
-          const float v = db1red[threadIdx.x] + db1red[kChunk + threadIdx.x];
-          *p = first ? v : *p + v;
-        }
-      }
-      __syncthreads();   // dz_s, hs_s and db1red are rewritten by the next chunk
+      __syncthreads();   // dz_s is rewritten by the next chunk
     }
 
     // epilogue: the LN backward of dy, one m16 row pair (gq, gq + 8) of each
@@ -645,26 +558,19 @@ bwd_dw_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_w,
 
 // out[i] = sum over the slots of part[s * stride + i], in slot order, in
 // fp64 (K8a sums up to thousands of row blocks' partials: an fp32 running
-// sum would lose their last bits); the region [t0, t0 + tr * tc), a
-// tr x tc matrix, is written transposed.
+// sum would lose their last bits).
 __global__ void sum_slots_kernel(const float* __restrict__ part, long stride, int slots, long n,
-                                 float* __restrict__ out, long t0, int tr, int tc) {
+                                 float* __restrict__ out) {
   for (long i = (long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long)gridDim.x * blockDim.x) {
     double v = 0.0;
     for (int s = 0; s < slots; ++s) v += part[s * stride + i];
-    long o = i;
-    if (i >= t0 && i < t0 + (long)tr * tc) {
-      const long k = i - t0;
-      o = t0 + (k % tc) * tr + k / tc;
-    }
-    out[o] = (float)v;
+    out[i] = (float)v;
   }
 }
 
-int finish(const float* part, long stride, int slots, float* out, long t0, int tr, int tc,
-           cudaStream_t st) {
-  sum_slots_kernel<<<1024, 256, 0, st>>>(part, stride, slots, stride, out, t0, tr, tc);
+int finish(const float* part, long stride, int slots, float* out, cudaStream_t st) {
+  sum_slots_kernel<<<1024, 256, 0, st>>>(part, stride, slots, stride, out);
   return (int)cudaGetLastError();
 }
 
@@ -678,10 +584,10 @@ struct RowArgs {
   cudaStream_t st;
 };
 
-template <int R, int C, bool kDW>
+template <int R, int C>
 int launch_rows(const RowArgs& a) {
   using T = RowTiling<R, C>;
-  auto kern = bwd_rows_kernel<R, C, kDW>;
+  auto kern = bwd_rows_kernel<R, C>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::smem);
   if (err != cudaSuccess) return (int)err;
@@ -694,14 +600,13 @@ int launch_rows(const RowArgs& a) {
   return (int)cudaGetLastError();
 }
 
-template <bool kDW>
 int launch_rows_c(const RowArgs& a, int C) {
   // rows a block by width, as K2: dy's R x C fp32 accumulator is at most 128
   // registers a thread
-  if (C == 128) return launch_rows<128, 128, kDW>(a);
-  if (C == 256) return launch_rows<64, 256, kDW>(a);
-  if (C == 512) return launch_rows<64, 512, kDW>(a);
-  if (C == 1024) return launch_rows<32, 1024, kDW>(a);
+  if (C == 128) return launch_rows<128, 128>(a);
+  if (C == 256) return launch_rows<64, 256>(a);
+  if (C == 512) return launch_rows<64, 512>(a);
+  if (C == 1024) return launch_rows<32, 1024>(a);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -725,28 +630,26 @@ int launch_dw(const void* x, const void* ln_w, const void* ln_b, const void* w1,
 }  // namespace
 }  // namespace clover
 
-// K7 (with_dw = 1) or K8a (0). part: slots x stride fp32 workspace, stride
-// = 2 H C + H + 3 C (K7) or 3 C (K8a); out (stride floats): K7 [dW1 (H, C)]
-// [dW2 (C, H)][db1 H][dscale C][dbias C][db2 C], K8a [dscale][dbias][db2].
-// drs (rows,) fp32 is written when row_scale is given. slots <= the row blocks.
+// K8a. part: slots x 3 C fp32 workspace; out (3 C floats): [dscale][dbias]
+// [db2]. drs (rows,) fp32 is written when row_scale is given. slots <= the
+// row blocks.
 extern "C" int clover_mlp_bwd_rows(const void* x, const void* ln_w, const void* ln_b,
                                    const void* w1, const void* w1t, const void* b1,
                                    const void* w2t, const void* b2, const void* g,
                                    const void* row_scale, void* dx, void* drs, void* part,
-                                   void* out, int rows, int C, int H, int slots, int with_dw,
-                                   float eps, int tanh_approx, void* stream) {
+                                   void* out, int rows, int C, int H, int slots, float eps,
+                                   int tanh_approx, void* stream) {
   using namespace clover;
   if (rows <= 0 || H <= 0 || H % kChunk || slots <= 0 || (drs == nullptr) != (row_scale == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const long stride = with_dw ? 2L * H * C + H + 3L * C : 3L * C;
+  const long stride = 3L * C;
   const RowArgs a{x,  ln_w, ln_b, w1,   w1t,  b1,    w2t, b2,  g,
                   row_scale, dx, drs, part, stride, rows, H, slots, eps, tanh_approx,
                   (cudaStream_t)stream};
-  const int rc = with_dw ? launch_rows_c<true>(a, C) : launch_rows_c<false>(a, C);
+  const int rc = launch_rows_c(a, C);
   if (rc != 0) return rc;
-  return finish((const float*)part, stride, slots, (float*)out, with_dw ? (long)H * C : 0,
-                with_dw ? H : 0, with_dw ? C : 1, a.st);
+  return finish((const float*)part, stride, slots, (float*)out, a.st);
 }
 
 // K8b (erf GELU). part: groups x (2 H C + H) fp32; out: [dW1 (H, C)][dW2 (C, H)][db1 H].
@@ -773,5 +676,5 @@ extern "C" int clover_mlp_bwd_dw(const void* x, const void* ln_w, const void* ln
     return (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;
-  return finish((const float*)part, stride, groups, (float*)out, 0, 0, 1, st);
+  return finish((const float*)part, stride, groups, (float*)out, st);
 }

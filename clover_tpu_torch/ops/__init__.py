@@ -21,6 +21,7 @@ from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
     ln_mlp_bwd_dx,
     ln_mlp_residual_bwd_onepass,
     ln_mlp_residual_bwd_pair,
+    ln_mlp_residual_bwd_passes,
     ln_mlp_residual_bwd_recompute,
     ln_mlp_residual_bwd_stash,
     ln_mlp_residual_plain,

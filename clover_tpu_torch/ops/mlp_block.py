@@ -14,11 +14,12 @@
   (the JAX ``_forward(..., row_scale)`` that ``_fwd`` runs when
   ``CLOVER_MLP_STASH=0``): ``x + s * MLP(LN(x))``, nothing saved but x.
   Its backward recomputes LN, fc1 and GELU: ``ln_mlp_residual_bwd_recompute``
-  (the JAX ``_xla_backward``, plain PyTorch GEMMs), the one-pass kernel K7
-  (``ln_mlp_residual_bwd_onepass``, the JAX ``_backward_onepass``) or the
-  pair K8a + K8b (``ln_mlp_residual_bwd_pair``, the JAX
-  ``_backward_pallas``, erf only), picked by ``FusedLnMlpResidualFn``'s
-  ``mlp_bwd``.
+  (the JAX ``_xla_backward``, plain PyTorch GEMMs), K7
+  (``ln_mlp_residual_bwd_onepass``, the JAX ``_backward_onepass``, as the
+  passes of ``csrc/mlp_block_bwd_passes.cu``; their plain forms are
+  ``ln_mlp_residual_bwd_passes``) or the pair K8a + K8b
+  (``ln_mlp_residual_bwd_pair``, the JAX ``_backward_pallas``, erf only),
+  picked by ``FusedLnMlpResidualFn``'s ``mlp_bwd``.
 - ``fused_mlp_postln``: ``LN(x + gelu_erf(x W1^T + b1) W2^T + b2)``, the
   BERT post-LN half (port of ``::fused_mlp_postln``).
 - ``fused_mlp_postln_dropout``: the same half in training, with its hidden
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,13 +51,17 @@ _HIDDEN_CHUNK = 128      # the kernels walk the hidden in chunks of 128 columns
 # K3 splits the hidden over this many blocks per 32 rows: BERT-base's
 # B*L = 960 rows make 30 row blocks, too few for the card's 132 SMs
 _POSTLN_SPLITS = 4
-# rows a block of the backward kernels by width (csrc/mlp_block_bwd.cu:
+# rows a block of K8a and K8b by width (csrc/mlp_block_bwd.cu:
 # launch_rows_c, and bwd_dw_kernel's R, whose hidden chunk is 8192 / C)
 _BWD_ROWS = {128: 128, 256: 64, 512: 64, 1024: 32}
 _DW_ROWS = {128: 16, 256: 32, 512: 32, 1024: 32}
-# K7's fp32 slices (one per persistent block, 2 C H + H + 3 C floats each)
-# are held under this many bytes in all
-_SLOT_BYTES = 4 << 30
+# K7 (csrc/mlp_block_bwd_passes.cu): its GEMM passes' output tiles are
+# _K7_TILE x _K7_TILE; its rows go in chunks whose dz and s h (two bf16
+# (rows, H) buffers) stay under _K7_HIDDEN_BYTES; its LN pass takes
+# _K7_LN_BLOCKS_PER_SM blocks an SM
+_K7_TILE = 128
+_K7_HIDDEN_BYTES = 1 << 29
+_K7_LN_BLOCKS_PER_SM = 4
 
 
 def ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
@@ -270,34 +276,244 @@ def _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g):
             torch.empty_like(x), drs)
 
 
-def _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, with_dw):
-    """K7 (with_dw) or K8a: -> (dx, drs, the summed slot as one fp32 buffer)."""
+def _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g):
+    """K8a: -> (dx, drs, [dscale, dbias, db2] as one fp32 buffer)."""
     rows, C = x.shape
     H = w1.shape[0]
     w1b, w1t, w2t, dx, drs = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
-    n_rb = -(-rows // _BWD_ROWS[C])
-    stride = 2 * H * C + H + 3 * C if with_dw else 3 * C
-    slots = (min(n_rb, max(1, _SLOT_BYTES // (4 * stride)), _build.sms(x.device)) if with_dw
-             else n_rb)
-    part = torch.empty(slots * stride, dtype=torch.float32, device=x.device)
-    out = torch.empty(stride, dtype=torch.float32, device=x.device)
+    slots = -(-rows // _BWD_ROWS[C])
+    part = torch.empty(slots * 3 * C, dtype=torch.float32, device=x.device)
+    out = torch.empty(3 * C, dtype=torch.float32, device=x.device)
     _build.launch("clover_mlp_bwd_rows", x, ln_w, ln_b, w1b, w1t, b1, w2t, b2, g, row_scale, dx,
-                  drs, part, out, rows, C, H, slots, int(with_dw), float(eps),
-                  int(gelu == "tanh"), _build.stream(x.device))
+                  drs, part, out, rows, C, H, slots, float(eps), int(gelu == "tanh"),
+                  _build.stream(x.device))
+    return dx, drs, out
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class K7Plan(NamedTuple):
+    """K7's schedule (:func:`k7_plan`): rows in chunks of ``chunk_rows``;
+    per chunk, pass D's row groups of ``split_rows`` rows (one fp32 slot of
+    dW1, dW2 and db1 each, ``dw_slots`` in all) and at most ``ln_blocks``
+    blocks of the LN pass (one slot of dscale, dbias and db2 each,
+    ``ln_slots`` in all); the GEMM passes' grids of the largest chunk (``buf_rows`` rows); the bytes of
+    the one scratch allocation (:func:`_k7_scratch`'s buffers, each 256-byte
+    aligned) and of the output."""
+    chunk_rows: int
+    chunks: int
+    buf_rows: int
+    split_rows: int
+    dw_slots: int
+    ln_blocks: int
+    ln_slots: int
+    a_blocks: int
+    b_blocks: int
+    d_blocks: int
+    workspace_bytes: int
+
+
+def k7_plan(rows: int, C: int, H: int, sms: int = 132,
+            hidden_bytes: int = _K7_HIDDEN_BYTES) -> K7Plan:
+    """K7's schedule on a card of ``sms`` SMs (the kernel checks that the
+    slots it fills are the ones planned here). Pass D's row groups are whole
+    128-row tiles, as many as make its 2 (H / 128) (C / 128) output tiles
+    fill the card's two blocks an SM once (never more groups than the
+    chunk's row tiles)."""
+    T = _K7_TILE
+    chunks = _cdiv(4 * rows * H, hidden_bytes)
+    chunk_rows = _cdiv(_cdiv(rows, chunks), T) * T
+    sizes = [min(chunk_rows, rows - r0) for r0 in range(0, rows, chunk_rows)]
+    n, row_tiles = sizes[0], _cdiv(sizes[0], T)
+    tiles = 2 * _cdiv(H, T) * _cdiv(C, T)
+    groups = min(row_tiles, max(1, 2 * sms // tiles))
+    split_rows = _cdiv(row_tiles, groups) * T
+    ln_blocks = _K7_LN_BLOCKS_PER_SM * sms
+    dw_slots = sum(_cdiv(m, split_rows) for m in sizes)
+    ln_slots = sum(min(ln_blocks, _cdiv(m, 8)) for m in sizes)
+    plan = K7Plan(chunk_rows, len(sizes), n, split_rows, dw_slots, ln_blocks, ln_slots,
+                  _cdiv(H, T) * row_tiles, _cdiv(C, T) * row_tiles,
+                  tiles * _cdiv(n, split_rows), 0)
+    scratch = sum(_align256(math.prod(shape) * dt.itemsize)
+                  for shape, dt in _k7_scratch(plan, C, H))
+    return plan._replace(workspace_bytes=scratch + 4 * (2 * H * C + H + 3 * C))
+
+
+def _align256(nbytes: int) -> int:
+    return _cdiv(nbytes, 256) * 256
+
+
+def _k7_scratch(plan: K7Plan, C: int, H: int):
+    """K7's scratch buffers, in the C entry point's order, as (shape,
+    dtype): W1 and W2^T in bf16; y, dz and s h of a chunk; dy; pass A's drs
+    partials (used with a row scale) and db1 partials; the slots of pass D
+    and of the LN backward."""
+    n, bf16, f32 = plan.buf_rows, torch.bfloat16, torch.float32
+    return [((H, C), bf16), ((H, C), bf16), ((n, C), bf16), ((n, H), bf16), ((n, H), bf16),
+            ((n, C), f32), ((n, _cdiv(H, _K7_TILE)), f32), ((_cdiv(n, _K7_TILE), H), f32),
+            ((plan.dw_slots, 2 * H * C + H), f32), ((plan.ln_slots, 3 * C), f32)]
+
+
+def _k7_ln_rows_plain(x, ln_w, ln_b, eps):
+    """K7's first pass: y = LN(x) ln_w + ln_b in x's dtype (the plain
+    recompute's y)."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    xc = x32 - x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    return (xc * rstd * ln_w + ln_b).to(x.dtype)
+
+
+def _k7_pass_a_plain(y, g, w1, b1, w2, row_scale, gelu):
+    """Pass A: z = y W1^T + b1 and u = g W2 in fp32; -> (dz = s u gelu'(z),
+    s h in y's dtype (rows, H); drs partials sum_j h u over each 128-column
+    hidden tile (rows, H / 128), None without a row scale; db1 partials
+    sum_r dz over each 128-row tile, from the unrounded dz (row tiles,
+    H))."""
+    dt = y.dtype
+    z = _mm_f32(y, w1.to(dt).t()) + b1
+    u = _mm_f32(g, w2.to(dt))
+    mode = _GELU[gelu]
+    h = F.gelu(z, approximate=mode)
+    dg = torch.ops.aten.gelu_backward(torch.ones_like(z), z, approximate=mode)
+    s = row_scale.to(z.dtype)[:, None] if row_scale is not None else torch.ones_like(z[:, :1])
+    dz = s * u * dg
+    rows, H = z.shape
+    drs_part = None
+    if row_scale is not None:
+        T = _K7_TILE
+        drs_part = F.pad(h * u, (0, _cdiv(H, T) * T - H)).view(rows, -1, T).sum(-1)
+    tiles = -(-rows // _K7_TILE)
+    db1_part = F.pad(dz, (0, 0, 0, tiles * _K7_TILE - rows)).view(tiles, _K7_TILE, H).sum(1)
+    return dz.to(dt), (s * h).to(dt), drs_part, db1_part
+
+
+def _k7_pass_b_plain(dz, w1):
+    """Pass B: dy = dz W1, fp32 (rows, C)."""
+    return _mm_f32(dz, w1.to(dz.dtype))
+
+
+def _k7_ln_bwd_plain(x, g, dy, ln_w, b2, row_scale, drs_part, eps, ln_blocks):
+    """Pass C, the LN backward of dy: -> (dx in x's dtype; drs = the pass-A
+    partials + g . b2 per row, None without a row scale; the LN blocks'
+    partials (blocks, 3 C) of [dscale | dbias | db2], block b summing rows r
+    with (r // 8) % blocks == b, as the kernel's warps walk them)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    x32 = x.to(acc)
+    xc = x32 - x32.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xn = xc * rstd
+    dyt = dy * ln_w
+    m1 = dyt.mean(-1, keepdim=True)
+    m2 = (dyt * xn).mean(-1, keepdim=True)
+    g32 = g.to(acc)
+    dx = (rstd * (dyt - m1 - xn * m2) + g32).to(x.dtype)
+    gs = g32 * row_scale.to(acc)[:, None] if row_scale is not None else g32
+    drs = drs_part.sum(1) + (g32 * b2).sum(1) if row_scale is not None else None
+    rows, C = x.shape
+    blocks = min(ln_blocks, -(-rows // 8))
+    which = (torch.arange(rows, device=x.device) // 8) % blocks
+    part = torch.zeros((blocks, 3 * C), dtype=acc, device=x.device)
+    part.index_add_(0, which, torch.cat([dy * xn, dy, gs], dim=1))
+    return dx, drs, part
+
+
+def _k7_pass_d_plain(dz, hs, y, g, db1_part, split_rows):
+    """Pass D: per group of split_rows rows, dW1 = dz^T y (H, C), dW2 = g^T
+    s h (C, H) and db1 = the group's row tiles' partials, fp32; -> (groups,
+    2 H C + H), each row [dW1 | dW2 | db1] as the kernel's slots."""
+    parts = []
+    for k0 in range(0, dz.shape[0], split_rows):
+        rs = slice(k0, k0 + split_rows)
+        tiles = slice(k0 // _K7_TILE, -(-min(k0 + split_rows, dz.shape[0]) // _K7_TILE))
+        parts.append(torch.cat([_mm_f32(dz[rs].t(), y[rs]).flatten(),
+                                _mm_f32(g[rs].t(), hs[rs]).flatten(),
+                                db1_part[tiles].sum(0)]))
+    return torch.stack(parts)
+
+
+def ln_mlp_residual_bwd_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float,
+                               gelu: str, g, plan: K7Plan = None):
+    """K7's passes in plain PyTorch, chunk by chunk as the kernels run them
+    (``plan``: ``k7_plan``'s for 132 SMs by default): LN rows, pass A, pass
+    B, the LN backward and pass D, then the slots summed in fp64. -> (dx,
+    dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
+    rows, C = x.shape
+    H = w1.shape[0]
+    plan = plan or k7_plan(rows, C, H)
+    dxs, drss, dw_parts, ln_parts = [], [], [], []
+    for r0 in range(0, rows, plan.chunk_rows):
+        rs = slice(r0, r0 + plan.chunk_rows)
+        xc, gc = x[rs], g[rs]
+        sc = row_scale[rs] if row_scale is not None else None
+        y = _k7_ln_rows_plain(xc, ln_w, ln_b, eps)
+        dz, hs, drs_part, db1_part = _k7_pass_a_plain(y, gc, w1, b1, w2, sc, gelu)
+        dy = _k7_pass_b_plain(dz, w1)
+        dx, drs, ln_part = _k7_ln_bwd_plain(xc, gc, dy, ln_w, b2, sc, drs_part, eps,
+                                            plan.ln_blocks)
+        dw_parts.append(_k7_pass_d_plain(dz, hs, y, gc, db1_part, plan.split_rows))
+        dxs.append(dx)
+        drss.append(drs)
+        ln_parts.append(ln_part)
+    dw = torch.cat(dw_parts).double().sum(0)
+    dscale, dbias, db2 = torch.cat(ln_parts).double().sum(0).view(3, C)
+    dw1, dw2, db1 = dw.split((H * C, H * C, H))
+    drs = torch.cat(drss).to(row_scale.dtype) if row_scale is not None else None
+    return (torch.cat(dxs), dscale.to(ln_w.dtype), dbias.to(ln_b.dtype),
+            dw1.view(H, C).to(w1.dtype), db1.to(b1.dtype), dw2.view(C, H).to(w2.dtype),
+            db2.to(b2.dtype), drs)
+
+
+def _launch_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g):
+    """K7 on CUDA tensors. -> (dx, drs, [dW1 | dW2 | db1 | dscale | dbias |
+    db2] fp32)."""
+    rows, C = x.shape
+    H = w1.shape[0]
+    dev = x.device
+    _build.require(x, "x", torch.bfloat16, dev)
+    _build.require(g, "g", torch.bfloat16, dev, (rows, C))
+    _build.require(w1, "w1", torch.float32, dev, (H, C))
+    _build.require(w2, "w2", torch.float32, dev, (C, H))
+    for name, t, n in (("ln_w", ln_w, C), ("ln_b", ln_b, C), ("b1", b1, H), ("b2", b2, C)):
+        _build.require(t, name, torch.float32, dev, (n,))
+    if C not in _BWD_ROWS or H % _K7_TILE:
+        raise ValueError(f"K7 takes C in {tuple(_BWD_ROWS)} and H % {_K7_TILE} == 0; got C={C}, "
+                         f"H={H}")
+    plan = k7_plan(rows, C, H, _build.sms(dev))
+    drs = None
+    if row_scale is not None:
+        _build.require(row_scale, "row_scale", torch.float32, dev, (rows,))
+        drs = torch.empty(rows, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    out = torch.empty(2 * H * C + H + 3 * C, dtype=torch.float32, device=dev)
+    # one allocation for the scratch, carved in _k7_scratch's order
+    ws = torch.empty(plan.workspace_bytes - out.numel() * 4, dtype=torch.uint8, device=dev)
+    bufs, off = [], 0
+    for shape, dt in _k7_scratch(plan, C, H):
+        nbytes = math.prod(shape) * dt.itemsize
+        bufs.append(ws[off:off + nbytes].view(dt).view(shape))
+        off += _align256(nbytes)
+    if row_scale is None:
+        bufs[6] = None   # no drs partials
+    _build.launch("clover_mlp_bwd_passes", x, ln_w, ln_b, w1, b1, w2, b2, g, row_scale, dx, drs,
+                  *bufs, out, rows, C, H, plan.chunk_rows, plan.split_rows, plan.ln_blocks,
+                  plan.dw_slots, plan.ln_slots, float(eps), int(gelu == "tanh"),
+                  _build.stream(dev))
     return dx, drs, out
 
 
 def ln_mlp_residual_bwd_onepass(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float,
                                 gelu: str, g):
-    """K7, the one-pass recompute backward (the JAX ``_backward_onepass``),
-    tanh or erf; for CPU tensors ``ln_mlp_residual_bwd_recompute``.
-    -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
+    """K7, the recompute backward of the JAX ``_backward_onepass`` (tanh or
+    erf), as the passes of ``csrc/mlp_block_bwd_passes.cu``; for CPU tensors
+    their plain forms, ``ln_mlp_residual_bwd_passes``. The weights are fp32
+    on the card. -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
     _check_gelu(gelu)
     if not x.is_cuda:
-        return ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu,
-                                             g)
+        return ln_mlp_residual_bwd_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
     C, H = x.shape[1], w1.shape[0]
-    dx, drs, out = _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, True)
+    dx, drs, out = _launch_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
     ln_mlp_residual_bwd_onepass.launches += 1
     dw1, dw2, db1, tail = out.split((H * C, H * C, H, 3 * C))
     dscale, dbias, db2 = tail.view(3, C)
@@ -317,7 +533,7 @@ def ln_mlp_bwd_dx(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: st
     if not x.is_cuda:
         r = ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
         return r[0], r[1], r[2], r[6], r[7]
-    dx, drs, out = _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g, False)
+    dx, drs, out = _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
     ln_mlp_bwd_dx.launches += 1
     dscale, dbias, db2 = out.view(3, x.shape[1])
     return dx, dscale, dbias, db2, drs
