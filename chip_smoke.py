@@ -886,8 +886,9 @@ def drive_train_path(model, batches, dev, make=make_train_step):
 
 PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wins
     ("K5 window-attention backward", ("wa_bwd_",)),   # row pass, key pass, finish
-    ("K6a LN1 + qkv + attention", ("attn_block_attention_kernel",)),
-    ("K6b proj + residual", ("attn_block_proj_kernel",)),
+    ("K6 LN1 + qkv", ("k6_ln_rows", "k6_qkv_pass")),
+    ("K6 attention", ("k6flat",)),   # K11's kernel under K6's layout type
+    ("K6 proj + residual", ("k6_proj_pass",)),
     ("K11 key-tiled window attention", ("flash_window_attention_kernel",)),
     ("K9 / K10 head-major, grid attention", ("window_attention_heads_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),

@@ -21,7 +21,7 @@
 // head's q, k, v (N padded to a multiple of 16 with zero rows) in shared
 // memory. Each warp takes 16-row query strips and keeps the strip's whole
 // 16 x Np logits in registers as mma.sync (m16n8k16, bf16 in, fp32
-// accumulate) accumulators (window_attention.cuh, shared with K6). The
+// accumulate) accumulators (window_attention.cuh). The
 // bias comes in that accumulator order (the wrapper lays it out once per
 // call, -inf in the padded keys), so a lane reads its strip's bias as NT
 // coalesced 8-byte loads. Padded query rows are never stored. Past 16 key

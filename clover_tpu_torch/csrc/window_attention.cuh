@@ -1,12 +1,12 @@
 // Device code of one 16-row query strip of window attention, head dim 32:
 // softmax(scale * q k^T + bias [- 100 * (id_q != id_k)]) v, with q, k, v of
 // one (window, head) staged in shared memory (Np = 16 * KT rows, zero
-// padded, row stride kLd). Shared by K1 (window_attention.cu), K6's
-// attention pass (attn_block.cu), K9 / K10 (window_attention_heads.cu) and,
-// its online-softmax step on one key tile (strip_online), K11
-// (window_attention_flash.cu). What is added to the scaled logits is a
-// template parameter ("terms": add(n-tile, l[4])), and so is where a strip's
-// output rows go ("out": row(q)): K1's bf16 bias in accumulator order and
+// padded, row stride kLd). Shared by K1 (window_attention.cu), K9 / K10
+// (window_attention_heads.cu) and, its online-softmax step on one key tile
+// (strip_online), K11 and K6's attention pass (window_attention_flash.cu).
+// What is added to the scaled logits is a template parameter ("terms":
+// add(n-tile, l[4])), and so is where a strip's output rows go ("out":
+// row(q)): K1's bf16 bias in accumulator order and
 // region ids (RegionTerms; K11 reads the same, a key tile at a time), K9 /
 // K10's fp32 bias and fp32 additive mask, both in accumulator order
 // (FragTerms).
@@ -120,7 +120,7 @@ struct GridRows {
   __device__ __forceinline__ long out(int r) const { return token(r) * C + h * kHd; }
 };
 
-// a strip's output rows: out + rows.out(q) (K1 and K6: RowStride)
+// a strip's output rows: out + rows.out(q) (K1: RowStride)
 template <class Rows>
 struct OutRows {
   bf16* out;
@@ -292,7 +292,7 @@ __device__ __forceinline__ void attend_strip_with(const bf16* qs, const bf16* ks
   }
 }
 
-// K1 and K6: strip s with the head's bias in accumulator order (bias_h) and
+// K1: strip s with the head's bias in accumulator order (bias_h) and
 // the window's region ids in shared memory (id_s, read only when masked);
 // rows < N are written to out_b (the head's column 0 of the window's row 0)
 // at row stride ldo.

@@ -7,7 +7,8 @@
 // major q, k, v (Bn, nH, N, 32), reached from the flat qkv through
 // _forward_long_from_flat's relayout) and ::_forward_flat_flash (#11: the
 // same recurrence on the flat (Bn*N, 3C) qkv, out (Bn*N, C)): one kernel
-// template, two row layouts (wa::HeadRows, wa::FlatRows). The TPU reaches
+// template, two row layouts (wa::HeadRows, wa::FlatRows). K6's attention
+// pass (attn_block.cu) runs it on the flat layout too. The TPU reaches
 // them under CLOVER_WA_LONG when no all-keys block fits its VMEM; the port
 // picks them by SwinConfig.long_attn at N >= 384.
 //
@@ -98,6 +99,10 @@ struct Flat {  // #11: (Bn*N, 3C) qkv, (Bn*N, C) out
   int N, C;
   __device__ wa::FlatRows rows(int b, int h) const { return {long(b) * N, C, h}; }
 };
+
+// K6's attention pass: #11's layout under a type of its own, so that a
+// profile tells K6's launches of this kernel from K11's
+struct K6Flat : Flat {};
 
 template <class Layout>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
@@ -225,5 +230,17 @@ extern "C" int clover_flash_flat(const void* qkv, const void* bias, const void* 
   const int C = nH * kHd;
   const bf16* q = static_cast<const bf16*>(qkv);
   return launch(q, q + C, q + 2 * C, bias, ids, out, Bn, N, nH, nW, scale, Flat{N, C},
+                (cudaStream_t)stream);
+}
+
+// K6's pass 2 (attn_block.cu) on a chunk of whole windows: the arguments of
+// clover_flash_flat.
+extern "C" int clover_attn_block_attention(const void* qkv, const void* bias, const void* ids,
+                                           void* out, int Bn, int N, int nH, int nW,
+                                           float scale, void* stream) {
+  using namespace clover;
+  const int C = nH * kHd;
+  const bf16* q = static_cast<const bf16*>(qkv);
+  return launch(q, q + C, q + 2 * C, bias, ids, out, Bn, N, nH, nW, scale, K6Flat{{N, C}},
                 (cudaStream_t)stream);
 }

@@ -41,7 +41,9 @@ _SIGNATURES = {
     "clover_mlp_postln": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
     "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
     "clover_window_attention_bwd": (_P,) * 9 + (_I,) * 8 + (_F, _P),
-    "clover_attn_block": (_P,) * 12 + (_I,) * 5 + (_F, _F, _P),
+    "clover_attn_block_qkv": (_P,) * 7 + (_I, _I, _F, _P),
+    "clover_attn_block_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    "clover_attn_block_proj": (_P,) * 6 + (_I,) * 3 + (_P,),
     "clover_mlp_bwd_rows": (_P,) * 14 + (_I,) * 4 + (_F, _I, _P),
     "clover_mlp_bwd_passes": (_P,) * 22 + (_I,) * 8 + (_F, _I, _P),
     "clover_mlp_bwd_dw": (_P,) * 10 + (_I,) * 4 + (_F, _P),

@@ -282,12 +282,21 @@ STAGES = [(128, (16, 56, 56), (3, 3)), (256, (16, 28, 28), (3, 3)), (512, (16, 1
           (1024, (16, 7, 7), (0, 0))]
 
 
+def _close_on_card(got, ref, what):
+    """chip_smoke.py's K6 limit: max|got - ref| <= 2e-2 + 1e-2 max|ref|."""
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 + 1e-2 * ref.float().abs().max().item(), (what, err)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shifted", [False, True])
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
 def test_attn_block_kernel_on_card(cuda, stage, shifted):
     """K6 against its plain version at a stage shape of the 32-frame eval
-    (two samples' windows): bf16 limits as chip_smoke.py's K6."""
+    (two samples' windows): bf16 limits as chip_smoke.py's K6. At stages 0
+    and 3 each pass also against its plain step on the same inputs: LN1 +
+    qkv, K11's attention (its plain version, the online softmax), proj +
+    residual with a row scale."""
     C, dims, hw_shift = STAGES[stage]
     win = (8, 7, 7)
     win, sh = pswin.effective_window(dims, win, (4,) + hw_shift)
@@ -302,9 +311,46 @@ def test_attn_block_kernel_on_card(cuda, stage, shifted):
     got = ops.fused_window_attn_block(*args)
     torch.cuda.synchronize()
     assert ops.fused_window_attn_block.launches == before + 1
-    ref = ops.window_attn_block_plain(*args)
-    err = (got.float() - ref.float()).abs().max().item()
-    assert err <= 2e-2 + 1e-2 * ref.float().abs().max().item(), err
+    _close_on_card(got, ops.window_attn_block_plain(*args), "K6")
+    if stage in (1, 2):
+        return
+    qkv = pab.ln_qkv_pass(x, ls, lb, wqkv, bqkv)
+    _close_on_card(qkv, pab.ln_qkv_plain(x, ls, lb, wqkv, bqkv), "LN1 + qkv")
+    o = pab.attention_pass(qkv, bias, ids, 32 ** -0.5, C // 32, 392)
+    _close_on_card(o, ops.window_attention_flat_flash_plain(qkv, bias, ids, 32 ** -0.5, C // 32,
+                                                             392), "attention")
+    rs = torch.from_numpy((rng.random(Bn) < 0.75).astype(np.float32) / 0.75).to(cuda)
+    y = pab.proj_pass(o, x, wp, bp, rs, 392)
+    torch.cuda.synchronize()
+    _close_on_card(y, pab.proj_residual_plain(o, x, wp, bp, rs, 392), "proj + residual")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage,groups", [(2, 2), (3, 1)])
+def test_attn_block_kernel_in_chunks_on_card(cuda, stage, groups, monkeypatch):
+    """A call cut into chunks of ``groups`` nW-groups (the plan's cap set
+    low; 5 nW-groups of a shifted 32-frame stage, with a row scale: at stage
+    3, nW=2, the chunks' row-scale slices start 8 bytes apart) gives the
+    bits of the one-chunk call (each row's LN, products and window are the
+    same arithmetic wherever the chunk starts) and stays within the K6
+    limit of the plain version; one launch counted a call."""
+    C, dims, hw_shift = STAGES[stage]
+    win, sh = pswin.effective_window(dims, (8, 7, 7), (4,) + hw_shift)
+    ids = torch.from_numpy(pswin._shift_region_ids(dims, win, sh)).to(cuda)
+    nW, N = ids.shape[0], 392
+    rng = np.random.default_rng(42 + stage)
+    x, ls, lb, wqkv, bqkv, bias, wp, bp = card_args(rng, 5 * nW, N, C, cuda)
+    rs = torch.from_numpy((rng.random(5 * nW) < 0.75).astype(np.float32) / 0.75).to(cuda)
+    args = (x, ls, lb, wqkv, bqkv, bias, ids, wp, bp, 32 ** -0.5, C // 32, N, 1e-5, rs)
+    whole = ops.fused_window_attn_block(*args)
+    monkeypatch.setattr(pab, "_K6_CHUNK_BYTES", groups * nW * 10 * N * C)
+    assert len(pab.k6_plan(5 * nW, N, C, nW)) == -(-5 // groups)
+    before = ops.fused_window_attn_block.launches
+    got = ops.fused_window_attn_block(*args)
+    torch.cuda.synchronize()
+    assert ops.fused_window_attn_block.launches == before + 1
+    assert torch.equal(got, whole)
+    _close_on_card(got, ops.window_attn_block_plain(*args), "K6 in chunks")
 
 
 @pytest.mark.gpu

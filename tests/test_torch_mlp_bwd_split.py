@@ -15,12 +15,15 @@ where the rows go in two, three or seven chunks, and skip without a card: ``pyth
 --noconftest``.
 """
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
 from clover_tpu_torch import ops
 from clover_tpu_torch.ops import mlp_block as mb
+from clover_tpu_torch.ops.mlp_bwd_sweep import step_calls
 
 SMS = 132   # the H100's SMs
 NAMES = ("dx", "dln_w", "dln_b", "dw1", "db1", "dw2", "db2", "drs")
@@ -193,11 +196,33 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _on_card(dev, rows, C, seed):
-    x, w, rs, g = _case(seed, rows, C, True)
+def _on_card(dev, rows, C, seed, with_rs=True):
+    x, w, rs, g = _case(seed, rows, C, with_rs)
     to = dict(device=dev)
     return (x.to(dev, torch.bfloat16), [t.bfloat16().float().to(**to) for t in w],
-            rs.to(**to), g.to(dev, torch.bfloat16))
+            None if rs is None else rs.to(**to), g.to(dev, torch.bfloat16))
+
+
+def k7_digest(dev, rows, C, with_rs):
+    """sha256 of K7's outputs (NAMES' order, raw bytes) on _on_card's inputs."""
+    x, w, rs, g = _on_card(dev, rows, C, rows % 97 + C, with_rs)
+    h = hashlib.sha256()
+    for t in ops.ln_mlp_residual_bwd_onepass(x, *w, rs, 1e-5, "tanh", g):
+        if t is not None:
+            h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+# k7_digest at each call shape of the 32-frame remat pretrain step
+# (mlp_bwd_sweep.step_calls), taken on an NVIDIA H100 80GB HBM3 before the
+# GEMM core moved from csrc/mlp_block_bwd_passes.cu into csrc/gemm.cuh
+K7_DIGESTS = {
+    (802816, 128, False): "92e209b69edf407fec75cfea9b65cb128787bb6332665e221dc43acdaf087754",
+    (802816, 128, True): "59058994f15f90f540da7542454262d3703cc54a644456b013304cdf07b01ee5",
+    (200704, 256, True): "e06b741a7da8a06b3d3af7770b24dbec64c89a0037585b626d1cf19aee22b439",
+    (50176, 512, True): "f338b2db7306bdd1a8e6b8ce1c99bf3f3818f337e27a6873d76b7a03ceb5b055",
+    (12544, 1024, True): "4f0788bbc5b057e1b37deb8ad97779d9ca434c47dda25c0143cf6a9e8d5fd1d9",
+}
 
 
 @pytest.mark.gpu
@@ -248,3 +273,11 @@ def test_k7_chunks_on_card(cuda, chunks, monkeypatch):
         torch.testing.assert_close(a.float(), b.float(), rtol=0,
                                    atol=1e-5 * b.float().abs().max().item())
     _check_against_plain(got, x, w, rs, "erf", g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,C,with_rs", [c[:3] for c in step_calls()])
+def test_k7_outputs_keep_their_bits_on_card(cuda, rows, C, with_rs):
+    """K7's outputs at each P32 call shape are bitwise those saved in
+    K7_DIGESTS: the GEMM core it shares with K6 changed no bit."""
+    assert k7_digest(cuda, rows, C, with_rs) == K7_DIGESTS[rows, C, with_rs]
