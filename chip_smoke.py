@@ -10,7 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
 2. build the CUDA kernels from clover_tpu_torch/csrc (nvcc, sm_90a);
 3. hold each eval kernel against its plain PyTorch version at the shapes
    the Swin-B + BERT-base eval forward gives it (B=32 clips of 8 x 224^2,
-   L=30), bf16, and time both with CUDA events;
+   L=30), bf16, and time both with CUDA events; K2 at stage 2's shape also
+   in one chunk of rows and in 3, bitwise the call in its plan's chunks;
 4. drive the eval path -- make_embed_eval_step + run_retrieval_eval over a
    few batches of seeded random clips and captions, with seeded random
    weights -- and check the per-forward launch counts, finite embeddings
@@ -209,6 +210,18 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def peak_memory(dev) -> str:
+    """The device memory peak since the last reset: allocated (whole
+    allocator blocks, as max_memory_allocated counts them) and requested
+    (the bytes the tensors asked for, which the allocator's rounding does
+    not move)."""
+    import torch
+
+    st = torch.cuda.memory_stats(dev)
+    return (f"{st['allocated_bytes.all.peak'] / 2**30:.2f} GiB "
+            f"(requested {st['requested_bytes.all.peak'] / 2**20:.1f} MiB)")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -501,8 +514,11 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
         x, w = randn(rows, C), mlp_weights(randn, C, 4 * C)
         k = lambda: ops.fused_ln_mlp_residual(x, *w, 1e-5, cfg.swin.gelu)   # noqa: E731
         p = lambda: ops.ln_mlp_residual_plain(x, *w, 1e-5, cfg.swin.gelu)   # noqa: E731
-        record("K2", "fused_ln_mlp_residual", f"rows={rows} C={C}", k(), p(),
+        out = k()
+        record("K2", "fused_ln_mlp_residual", f"rows={rows} C={C}", out, p(),
                cuda_ms(k, 5), cuda_ms(p, 5), count, work=mlp_work(rows, C, 4 * C))
+        if frames == T and C == 4 * cfg.swin.embed_dim:
+            k2_chunks_check(k, out, rows, C)
 
     for (rows, C), count in calls["K3"]:
         H = cfg.text_bert.intermediate_size
@@ -525,6 +541,36 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
                cuda_ms(k, 10), cuda_ms(p, 10), count,
                work=bound_ms(fp32_ops=8 * rows * C, nbytes=4 * rows * C + 8 * C), lib=lib)
     return results
+
+
+def k2_chunks_check(k, planned, rows, C):
+    """K2 at one eval shape run again with its chunk caps set so that the
+    passes take the rows in one chunk and in 3: each bitwise the call in
+    the plan's chunks, and two calls bitwise equal."""
+    import torch
+
+    from clover_tpu_torch.ops import mlp_block as mb
+
+    H = 4 * C
+    again = k()
+    caps = mb._K2_CHUNK_BYTES, mb._K2_HIDDEN_OVER_X
+    outs, counts = [], []
+    try:
+        mb._K2_HIDDEN_OVER_X = H // C
+        for cap in (caps[0], -(-rows // (3 * mb._K2_TILE)) * mb._K2_TILE * 2 * (C + H)):
+            mb._K2_CHUNK_BYTES = cap
+            counts.append(len(mb.k2_plan(rows, C, H, mb._K2_HIDDEN_OVER_X)))
+            outs.append(k())
+    finally:
+        mb._K2_CHUNK_BYTES, mb._K2_HIDDEN_OVER_X = caps
+    torch.cuda.synchronize()
+    same = torch.equal(again, planned)
+    same1, same3 = (torch.equal(o, planned) for o in outs)
+    print(f"K2 rows={rows} C={C}: two calls bitwise equal {same}; the plan's "
+          f"{len(mb.k2_plan(rows, C, H, caps[1]))} chunks bitwise {counts[0]} chunk {same1} "
+          f"and {counts[1]} chunks {same3}", flush=True)
+    check(counts == [1, 3] and same and same1 and same3,
+          f"K2 rows={rows} C={C}: chunks change the bits")
 
 
 def recorder(results, per):
@@ -860,7 +906,7 @@ def make_train_step(model, dev):
 def drive_train_path(model, batches, dev, make=make_train_step):
     """A train path (``make``: the finetune step, or the pretrain step) for
     TRAIN_STEPS steps. -> (metrics per step, step 1's gradients, seconds per
-    step, peak bytes)."""
+    step, the peak memory as text)."""
     import torch
 
     state, step, generator = make(model, dev)
@@ -878,7 +924,7 @@ def drive_train_path(model, batches, dev, make=make_train_step):
                   f"step {state.step}: {name} has no finite gradient")
         if grads1 is None:
             grads1 = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
-    peak = torch.cuda.max_memory_allocated(dev)
+    peak = peak_memory(dev)
     model.zero_grad(set_to_none=True)
     del state
     return metrics, grads1, seconds, peak
@@ -892,11 +938,11 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
     ("K11 key-tiled window attention", ("flash_window_attention_kernel",)),
     ("K9 / K10 head-major, grid attention", ("window_attention_heads_kernel",)),
     ("K1 window attention", ("window_attention_kernel",)),
-    ("K3 / K3M post-LN FFN", ("mlp_kernel<32, 768, false>", "postln_finish")),
+    ("K2 / K3 MLP LN rows + fc1 GEMM", ("mlp_ln_rows", "mlp_fc1_pass")),
+    ("K2 / K3 MLP fc2 GEMM + K3 finish", ("mlp_fc2_pass", "postln_finish")),
     ("K7 recompute MLP backward, passes", ("k7_",)),
     ("K8a MLP backward, row kernel", ("bwd_rows_kernel", "sum_slots")),
     ("K8b MLP backward, dW kernel", ("bwd_dw_kernel",)),
-    ("K2 / K2 stash MLP halves", ("mlp_kernel",)),
     ("K4 LayerNorm", ("layer_norm_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
     ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
@@ -1055,7 +1101,7 @@ def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: st
     print(f"{tag} clips/s ({shape}, steps 3-{steps}): kernels "
           f"{steady(k_sec):.2f} plain {steady(p_sec):.2f}; step seconds kernels "
           f"{[round(t, 4) for t in k_sec]} plain {[round(t, 4) for t in p_sec]}; peak memory "
-          f"kernels {k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}",
+          f"kernels {k_peak} plain {p_peak} on {card}",
           flush=True)
     if profile:
         profile_train_path(model, batches, dev, clips * 1e3 / steady(k_sec), f"kernel {tag}",
@@ -1270,7 +1316,7 @@ def eval32_phase(model, plain, cfg, dev, card, profile: bool):
                    "forward")
     torch.cuda.reset_peak_memory_stats(dev)
     v, t, cps = timed_embeddings(model, cfg, batches, dev)
-    k_peak = torch.cuda.max_memory_allocated(dev)
+    k_peak = peak_memory(dev)
     check(v.shape == (B * N32_BATCHES, cfg.vts_embed_dim) and t.shape == v.shape,
           f"32-frame embedding shapes {tuple(v.shape)}, {tuple(t.shape)}")
     check(bool(torch.isfinite(v).all() and torch.isfinite(t).all()),
@@ -1282,7 +1328,7 @@ def eval32_phase(model, plain, cfg, dev, card, profile: bool):
     p_metrics = drive_main_path(plain, cfg, batches)
     torch.cuda.reset_peak_memory_stats(dev)
     pv, pt, p_cps = timed_embeddings(plain, cfg, batches, dev)
-    p_peak = torch.cuda.max_memory_allocated(dev)
+    p_peak = peak_memory(dev)
     check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain 32-frame path launched a kernel")
     cos_v = torch.nn.functional.cosine_similarity(v, pv, dim=-1).min().item()
     cos_t = torch.nn.functional.cosine_similarity(t, pt, dim=-1).min().item()
@@ -1293,8 +1339,8 @@ def eval32_phase(model, plain, cfg, dev, card, profile: bool):
           f"32-frame kernel path disagrees with the plain path: min cosine video {cos_v:.6f} "
           f"text {cos_t:.6f}, bound {COS32_MIN}")
     print(f"32-frame clips/s (B={B}, {T32}x{S}^2, L={L}, {N32_BATCHES} batches, forward only): "
-          f"kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels {k_peak / 2**30:.2f} GiB "
-          f"plain {p_peak / 2**30:.2f} GiB on {card}", flush=True)
+          f"kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels {k_peak} plain {p_peak} "
+          f"on {card}", flush=True)
     if profile:
         profile_eval_path(model, cfg, batches, dev, B * 1e3 / cps, "kernel 32-frame eval path")
     return counts
@@ -1329,7 +1375,7 @@ def spatial_path_phase(path, weights, dev, card, profile: bool):
     check_launches(f"{path} {fields}", counts, {**EVAL_COMMON, **own}, n_batches, "forward")
     torch.cuda.reset_peak_memory_stats(dev)
     v, t, cps = timed_embeddings(model, cfg, batches, dev)
-    k_peak = torch.cuda.max_memory_allocated(dev)
+    k_peak = peak_memory(dev)
     check(v.shape == (clips * n_batches, cfg.vts_embed_dim) and t.shape == v.shape,
           f"{path} embedding shapes {tuple(v.shape)}, {tuple(t.shape)}")
     check(bool(torch.isfinite(v).all() and torch.isfinite(t).all()),
@@ -1340,7 +1386,7 @@ def spatial_path_phase(path, weights, dev, card, profile: bool):
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     pv, pt, p_cps = timed_embeddings(plain, cfg, batches, dev)
-    p_peak = torch.cuda.max_memory_allocated(dev)
+    p_peak = peak_memory(dev)
     check(all(fn.launches == 0 for fn in ops.KERNELS), f"the plain {path} path launched a kernel")
     cos_v = torch.nn.functional.cosine_similarity(v, pv, dim=-1).min().item()
     cos_t = torch.nn.functional.cosine_similarity(t, pt, dim=-1).min().item()
@@ -1350,7 +1396,7 @@ def spatial_path_phase(path, weights, dev, card, profile: bool):
           f"{path} kernel path disagrees with the plain path: min cosine video {cos_v:.6f} "
           f"text {cos_t:.6f}, bound {cos_min}")
     print(f"{path} clips/s ({shape}): kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels "
-          f"{k_peak / 2**30:.2f} GiB plain {p_peak / 2**30:.2f} GiB on {card}", flush=True)
+          f"{k_peak} plain {p_peak} on {card}", flush=True)
     if profile:
         profile_eval_path(model, cfg, batches, dev, clips * 1e3 / cps, f"kernel {path} eval path")
     del model, plain, v, t, pv, pt

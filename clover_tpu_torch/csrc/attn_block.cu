@@ -132,14 +132,6 @@ k6_proj_pass(const bf16* __restrict__ attn, const bf16* __restrict__ wproj,
     }
 }
 
-// the GEMM passes' grid: (column tiles, row tiles); false past the card's limits
-bool gemm_grid(long rows, int cols, dim3& grid) {
-  const long row_tiles = (rows + kBM - 1) / kBM;
-  if (rows <= 0 || rows > 0x7fffffffL || row_tiles > 65535) return false;
-  grid = dim3(cols / kBN, (unsigned)row_tiles);
-  return true;
-}
-
 }  // namespace
 }  // namespace clover
 
@@ -151,7 +143,7 @@ extern "C" int clover_attn_block_qkv(const void* x, const void* ln_w, const void
                                      int rows, int C, float eps, void* stream) {
   using namespace clover;
   dim3 grid;
-  if (C <= 0 || C % kBN || !gemm_grid(rows, 3 * C, grid)) return (int)cudaErrorInvalidValue;
+  if (C <= 0 || C % kBN || !gemm::grid(rows, 3 * C, grid)) return (int)cudaErrorInvalidValue;
   const int rc = gemm::allow_smem(k6_qkv_pass, GemmQkv::pipe_bytes);
   if (rc) return rc;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -170,7 +162,7 @@ extern "C" int clover_attn_block_proj(const void* attn, const void* wproj, const
                                       int C, int N, void* stream) {
   using namespace clover;
   dim3 grid;
-  if (C <= 0 || C % kBN || N <= 0 || rows % N || !gemm_grid(rows, C, grid)) {
+  if (C <= 0 || C % kBN || N <= 0 || rows % N || !gemm::grid(rows, C, grid)) {
     return (int)cudaErrorInvalidValue;
   }
   const int rc = gemm::allow_smem(k6_proj_pass, GemmProj::pipe_bytes);

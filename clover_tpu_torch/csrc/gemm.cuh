@@ -1,5 +1,6 @@
 // The GEMM core and LayerNorm rows shared by K7's passes
-// (mlp_block_bwd_passes.cu) and K6's (attn_block.cu).
+// (mlp_block_bwd_passes.cu), K6's (attn_block.cu) and K2 / K3's
+// (mlp_block.cu).
 //
 // The core: 128 x 128 block tiles, 8 warps of 64 x 32 a product (2 x 4 of
 // them), a ring of 3 cp.async stages of depth BK (row strides padded by 16
@@ -40,11 +41,14 @@ __device__ __forceinline__ void row_stats(const __nv_bfloat162* xr, int C2, floa
 }
 
 // The body of an LN-rows kernel of kThreads threads: y = bf16(LN(x) * ln_w
-// + ln_b), one warp a row (row blockIdx.x * 8 + warp)
+// + ln_b), one warp a row (row blockIdx.x * 8 + warp); the row's fp32 mean
+// and rstd also into mean_out / rstd_out where not nullptr
 __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x,
                                         const float* __restrict__ ln_w,
                                         const float* __restrict__ ln_b, bf16* __restrict__ y,
-                                        int rows, int C, float eps) {
+                                        int rows, int C, float eps,
+                                        float* __restrict__ mean_out = nullptr,
+                                        float* __restrict__ rstd_out = nullptr) {
   const int lane = threadIdx.x & 31;
   const long r = (long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
   if (r >= rows) return;
@@ -53,6 +57,10 @@ __device__ __forceinline__ void ln_rows(const bf16* __restrict__ x,
   __nv_bfloat162* yr = reinterpret_cast<__nv_bfloat162*>(y + r * C);
   float mean, rstd;
   row_stats(xr, C2, eps, lane, mean, rstd);
+  if (mean_out != nullptr && lane == 0) {
+    mean_out[r] = mean;
+    rstd_out[r] = rstd;
+  }
   for (int c = lane; c < C2; c += 32) {
     const float2 v = __bfloat1622float2(xr[c]);
     yr[c] = __floats2bfloat162_rn((v.x - mean) * rstd * ln_w[2 * c] + ln_b[2 * c],
@@ -174,6 +182,15 @@ struct Gemm {
     __syncthreads();   // the ring may be reused by the caller's epilogue
   }
 };
+
+// a GEMM pass's grid over a (rows, cols) output: (column tiles, row tiles);
+// false past the card's limits
+inline bool grid(long rows, int cols, dim3& g) {
+  const long row_tiles = (rows + kBM - 1) / kBM;
+  if (rows <= 0 || rows > 0x7fffffffL || row_tiles > 65535) return false;
+  g = dim3(cols / kBN, (unsigned)row_tiles);
+  return true;
+}
 
 template <typename K>
 int allow_smem(K kern, size_t bytes) {

@@ -37,8 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each C entry point; pointers and the stream are c_void_p
 _SIGNATURES = {
     "clover_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _P),
-    "clover_ln_mlp_residual": (_P,) * 12 + (_I, _I, _I, _F, _I, _P),
-    "clover_mlp_postln": (_P,) * 10 + (_I, _I, _I, _I, _F, _P),
+    "clover_ln_mlp_residual": (_P,) * 13 + (_I,) * 4 + (_F, _I, _P),
+    "clover_mlp_postln": (_P,) * 11 + (_I,) * 4 + (_F, _P),
     "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
     "clover_window_attention_bwd": (_P,) * 9 + (_I,) * 8 + (_F, _P),
     "clover_attn_block_qkv": (_P,) * 7 + (_I, _I, _F, _P),

@@ -1,4 +1,4 @@
-"""Transformer MLP half-blocks with the hidden kept on chip (kernels K2, K3).
+"""Transformer MLP half-blocks (kernels K2, K3) and the Swin half's backwards.
 
 - ``fused_ln_mlp_residual``: ``x + gelu(LN(x) W1^T + b1) W2^T + b2``, the
   Swin pre-LN half (port of ``clover_tpu/ops/mlp_block.py::
@@ -30,8 +30,13 @@
   ``FusedMlpPostlnDropoutFn`` ties the two into autograd.
 
 The wrappers launch ``csrc/mlp_block.cu`` for a CUDA tensor and run their
-plain version for a CPU tensor. Weights are torch ``Linear`` layouts: ``w1``
-(H, C), ``w2`` (C, H); parameters may be fp32 and are cast to x's dtype.
+plain version for a CPU tensor. On the card K2 and K3 run as passes over
+chunks of rows (:func:`k2_plan`): K2 as LN rows, the fc1 GEMM and the fc2
+GEMM with the residual (:func:`ln_mlp_residual_passes`), K3 / K3M as the
+fc1 GEMM, the fc2 GEMM into an fp32 partial and the LayerNorm finish
+(:func:`mlp_postln_passes`); on CPU tensors those chunk loops run each
+pass's plain step. Weights are torch ``Linear`` layouts: ``w1`` (H, C),
+``w2`` (C, H); parameters may be fp32 and are cast to x's dtype.
 """
 
 from __future__ import annotations
@@ -47,10 +52,17 @@ from clover_tpu_torch.ops import _build
 from clover_tpu_torch.ops.layer_norm import layer_norm_plain
 
 _GELU = {"tanh": "tanh", "erf": "none"}
-_HIDDEN_CHUNK = 128      # the kernels walk the hidden in chunks of 128 columns
-# K3 splits the hidden over this many blocks per 32 rows: BERT-base's
-# B*L = 960 rows make 30 row blocks, too few for the card's 132 SMs
-_POSTLN_SPLITS = 4
+# K2 and K3 (csrc/mlp_block.cu) run as passes over chunks of rows whose y
+# and hidden h, 2 (C + H) bf16 bytes a row, stay under _K2_CHUNK_BYTES; a
+# chunk is a whole number of the GEMM passes' _K2_TILE-row tiles
+_K2_CHUNK_BYTES = 256 << 20
+_K2_TILE = 128
+# K2's chunk also keeps its h under this many times the call's x bytes: the
+# MLP half's workspace (out + h <= 3 x) then stays below the attention
+# half's (LN1 output, qkv and attention output, >= 5 x), so it sets no new
+# peak (one chunk, h = 4 x, did on E8P's stage 0). K3's h and fp32 partial
+# (6 x) stay under the 8 x of fp32 partials its fused kernel held.
+_K2_HIDDEN_OVER_X = 2
 # rows a block of K8a and K8b by width (csrc/mlp_block_bwd.cu:
 # launch_rows_c, and bwd_dw_kernel's R, whose hidden chunk is 8192 / C)
 _BWD_ROWS = {128: 128, 256: 64, 512: 64, 1024: 32}
@@ -94,41 +106,166 @@ def mlp_postln_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
     return layer_norm_plain(x.float() + y.float(), ln_w, ln_b, eps).to(dt)
 
 
-def _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, widths, hidden_multiple):
+def _check_gelu(gelu: str) -> None:
+    if gelu not in _GELU:
+        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
+
+
+def k2_plan(rows: int, C: int, H: int, hidden_over_x=None) -> tuple:
+    """K2 / K3's chunks of rows: ((first row, rows), ...), in order. Each
+    chunk's y and h, 2 (C + H) bytes a row, stay under ``_K2_CHUNK_BYTES``
+    and, with ``hidden_over_x``, its h (2 H bytes a row) under that many
+    times the call's x (2 rows C bytes), one tile where a tile alone is
+    larger; as few chunks as that allows, each but the last the same whole
+    number of ``_K2_TILE``-row tiles, the fewest that keep the count."""
+    T = _K2_TILE
+    per = _K2_CHUNK_BYTES // (2 * (C + H))                   # rows a chunk may hold
+    if hidden_over_x is not None:
+        per = min(per, hidden_over_x * rows * C // H)
+    if per >= rows:
+        return ((0, rows),)
+    per = max(T, per // T * T)
+    chunks = -(-rows // per)
+    step = -(-(-(-rows // chunks)) // T) * T
+    return tuple((r0, min(step, rows - r0)) for r0 in range(0, rows, step))
+
+
+def _k2_ln_rows_plain(x, ln_w, ln_b, eps):
+    """K2's (and K7's) LN rows: y = LN(x) ln_w + ln_b in x's dtype, from the
+    fp32 (or wider) row mean and rstd. -> (y, mean, rstd)."""
+    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+    mean = x32.mean(-1)
+    xc = x32 - mean[:, None]
+    rstd = torch.rsqrt((xc * xc).mean(-1) + eps)
+    return (xc * rstd[:, None] * ln_w + ln_b).to(x.dtype), mean, rstd
+
+
+def _k2_fc1_plain(a, w1, b1, gelu):
+    """The fc1 pass: acc = a W1^T + b1 in fp32; -> (h = gelu(acc), z = acc),
+    each rounded once to a's dtype."""
+    dt = a.dtype
+    acc = _mm_f32(a, w1.to(dt).t()) + b1.to(torch.promote_types(dt, torch.float32))
+    return F.gelu(acc, approximate=_GELU[gelu]).to(dt), acc.to(dt)
+
+
+def _k2_fc2_plain(h, w2, b2, x, row_scale):
+    """K2's fc2 pass: x + s (h W2^T + b2) in fp32 (s the per-row scale, or
+    1), rounded once to x's dtype."""
+    dt = x.dtype
+    acc = torch.promote_types(dt, torch.float32)
+    y = _mm_f32(h, w2.to(dt).t()) + b2.to(acc)
+    if row_scale is not None:
+        y = y * row_scale.to(acc)[:, None]
+    return (x.to(acc) + y).to(dt)
+
+
+def _k3_fc2_plain(h, w2):
+    """K3's fc2 pass: h W2^T as an fp32 (rows, C) partial."""
+    return _mm_f32(h, w2.to(h.dtype).t())
+
+
+def _k3_finish_plain(x, partial, b2, ln_w, ln_b, mask, eps):
+    """K3's last pass: LN(x + b2 + partial), or with the mask LN(x +
+    (partial + b2) m), in fp32, rounded to x's dtype."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    z = x.to(acc) + b2 + partial if mask is None else x.to(acc) + (partial + b2) * mask
+    return layer_norm_plain(z, ln_w, ln_b, eps).to(x.dtype)
+
+
+def _check_call(x, ln_w, ln_b, w1, b1, w2, b2, postln: bool):
+    """Check a K2 / K3 call's CUDA inputs once; -> W1, W2 in bf16, which the
+    caller holds until its launches are queued (freed before, their memory
+    could go to a buffer the kernels write)."""
     rows, C = x.shape
     H = w1.shape[0]
     dev = x.device
+    if C % _K2_TILE or H % _K2_TILE or (postln and C > 1024):
+        raise ValueError(f"the MLP passes take C and H multiples of {_K2_TILE}"
+                         + (", C <= 1024" if postln else "") + f"; got C={C}, H={H}")
     _build.require(x, "x", torch.bfloat16, dev)
     w1b, w2b = w1.to(torch.bfloat16).contiguous(), w2.to(torch.bfloat16).contiguous()
     _build.require(w1b, "w1", torch.bfloat16, dev, (H, C))
     _build.require(w2b, "w2", torch.bfloat16, dev, (C, H))
     for name, t, n in (("ln_w", ln_w, C), ("ln_b", ln_b, C), ("b1", b1, H), ("b2", b2, C)):
         _build.require(t, name, torch.float32, dev, (n,))
-    if C not in widths or H % hidden_multiple:
-        raise ValueError(f"MLP kernel takes C in {widths} and H % {hidden_multiple} == 0; "
-                         f"got C={C}, H={H}")
+    return w1b, w2b
+
+
+def ln_mlp_residual_passes(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
+                           gelu: str = "erf", row_scale=None, want_stash: bool = False,
+                           hidden=None):
+    """K2 as its passes over :func:`k2_plan`'s chunks (h under
+    ``_K2_HIDDEN_OVER_X`` x x): per chunk LN rows into the chunk's rows of
+    out, fc1 into the workspace ``hidden`` (the first chunk's rows by H;
+    allocated when None), fc2 from it into out; the stash written in place.
+    On a CUDA tensor one C call queues every chunk's kernels (the inputs
+    checked and the weights cast to bf16 once a call); on a CPU tensor the
+    same loop runs each pass's plain step. -> out, or (out, (z, mean,
+    rstd)) with ``want_stash``."""
+    rows, C = x.shape
+    H = w1.shape[0]
+    plan = k2_plan(rows, C, H, _K2_HIDDEN_OVER_X)
+    chunk = plan[0][1]
     out = torch.empty_like(x)
-    # w1b/w2b must outlive the launch call, so the caller holds them until
-    # then; freed after it, the caching allocator only reuses their memory
-    # for work queued later on the same stream
-    return out, (x, ln_w, ln_b, w1b, b1, w2b, b2, out)
-
-
-def _check_gelu(gelu: str) -> None:
-    if gelu not in _GELU:
-        raise ValueError(f"gelu must be 'erf' or 'tanh', got {gelu!r}")
-
-
-def _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale=None, stash=None):
-    """K2 on CUDA tensors: -> out; with ``row_scale`` the training form's
-    DropPath scale, with ``stash`` (z, mean, rstd) its stash outputs."""
-    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (128, 256, 512, 1024),
-                             _HIDDEN_CHUNK)
+    z = mean = rstd = None
+    if want_stash:
+        mean = torch.empty(rows, dtype=torch.promote_types(x.dtype, torch.float32),
+                           device=x.device)
+        z, rstd = x.new_empty((rows, H)), torch.empty_like(mean)
+    hidden = x.new_empty((chunk, H)) if hidden is None else hidden
+    if not x.is_cuda:
+        for r0, n in plan:
+            rs = slice(r0, r0 + n)
+            y, m, r = _k2_ln_rows_plain(x[rs], ln_w, ln_b, eps)
+            hidden[:n], zz = _k2_fc1_plain(y, w1, b1, gelu)
+            if want_stash:
+                z[rs], mean[rs], rstd[rs] = zz, m, r
+            out[rs] = _k2_fc2_plain(hidden[:n], w2, b2, x[rs],
+                                    None if row_scale is None else row_scale[rs])
+        return (out, (z, mean, rstd)) if want_stash else out
+    w1b, w2b = _check_call(x, ln_w, ln_b, w1, b1, w2, b2, False)
     if row_scale is not None:
-        _build.require(row_scale, "row_scale", torch.float32, x.device, (x.shape[0],))
-    _build.launch("clover_ln_mlp_residual", *bufs[:7], row_scale, out,
-                  *(stash if stash is not None else (None, None, None)), *x.shape, w1.shape[0],
-                  float(eps), int(gelu == "tanh"), _build.stream(x.device))
+        _build.require(row_scale, "row_scale", torch.float32, x.device, (rows,))
+    _build.require(hidden, "hidden", torch.bfloat16, x.device, (chunk, H))
+    _build.launch("clover_ln_mlp_residual", x, ln_w, ln_b, w1b, b1, w2b, b2, row_scale, hidden,
+                  out, z, mean, rstd, rows, C, H, chunk, float(eps), int(gelu == "tanh"),
+                  _build.stream(x.device))
+    return (out, (z, mean, rstd)) if want_stash else out
+
+
+def mlp_postln_passes(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps: float = 1e-12, hidden=None,
+                      partial=None):
+    """K3 (``mask`` None) or K3M as their passes over :func:`k2_plan`'s
+    chunks: fc1 with the erf GELU on x into the workspace ``hidden``
+    (chunk, H), fc2 into the fp32 workspace ``partial`` (chunk, C) (each
+    allocated when None), the finish (LN, the mask). On a CUDA tensor one C
+    call queues every chunk's kernels (the inputs checked and the weights
+    cast to bf16 once a call); on a CPU tensor the same loop runs each
+    pass's plain step. -> out."""
+    rows, C = x.shape
+    H = w1.shape[0]
+    plan = k2_plan(rows, C, H)
+    chunk = plan[0][1]
+    out = torch.empty_like(x)
+    hidden = x.new_empty((chunk, H)) if hidden is None else hidden
+    if partial is None:
+        partial = torch.empty((chunk, C), device=x.device,
+                              dtype=torch.promote_types(x.dtype, torch.float32))
+    if not x.is_cuda:
+        for r0, n in plan:
+            rs = slice(r0, r0 + n)
+            hidden[:n] = _k2_fc1_plain(x[rs], w1, b1, "erf")[0]
+            partial[:n] = _k3_fc2_plain(hidden[:n], w2)
+            out[rs] = _k3_finish_plain(x[rs], partial[:n], b2, ln_w, ln_b,
+                                       None if mask is None else mask[rs], eps)
+        return out
+    w1b, w2b = _check_call(x, ln_w, ln_b, w1, b1, w2, b2, True)
+    if mask is not None:
+        _build.require(mask, "mask", torch.float32, x.device, (rows, C))
+    _build.require(hidden, "hidden", torch.bfloat16, x.device, (chunk, H))
+    _build.require(partial, "partial", torch.float32, x.device, (chunk, C))
+    _build.launch("clover_mlp_postln", x, ln_w, ln_b, w1b, b1, w2b, b2, mask, hidden, partial,
+                  out, rows, C, H, chunk, float(eps), _build.stream(x.device))
     return out
 
 
@@ -138,7 +275,7 @@ def fused_ln_mlp_residual(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5,
     _check_gelu(gelu)
     if not x.is_cuda:
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu)
-    out = _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu)
+    out = ln_mlp_residual_passes(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu)
     fused_ln_mlp_residual.launches += 1
     return out
 
@@ -151,10 +288,8 @@ def fused_ln_mlp_residual_stash(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5
     if not x.is_cuda:
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale,
                                      want_stash=True)
-    rows, H = x.shape[0], w1.shape[0]
-    mean = torch.empty(rows, dtype=torch.float32, device=x.device)
-    stash = (torch.empty((rows, H), dtype=x.dtype, device=x.device), mean, torch.empty_like(mean))
-    out = _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale, stash)
+    out, stash = ln_mlp_residual_passes(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale,
+                                        want_stash=True)
     fused_ln_mlp_residual_stash.launches += 1
     return out, stash
 
@@ -166,7 +301,7 @@ def fused_ln_mlp_residual_train(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-5
     _check_gelu(gelu)
     if not x.is_cuda:
         return ln_mlp_residual_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale)
-    out = _launch_ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale)
+    out = ln_mlp_residual_passes(x, ln_w, ln_b, w1, b1, w2, b2, eps, gelu, row_scale)
     fused_ln_mlp_residual_train.launches += 1
     return out
 
@@ -356,15 +491,6 @@ def _k7_scratch(plan: K7Plan, C: int, H: int):
             ((plan.dw_slots, 2 * H * C + H), f32), ((plan.ln_slots, 3 * C), f32)]
 
 
-def _k7_ln_rows_plain(x, ln_w, ln_b, eps):
-    """K7's first pass: y = LN(x) ln_w + ln_b in x's dtype (the plain
-    recompute's y)."""
-    x32 = x.to(torch.promote_types(x.dtype, torch.float32))
-    xc = x32 - x32.mean(-1, keepdim=True)
-    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
-    return (xc * rstd * ln_w + ln_b).to(x.dtype)
-
-
 def _k7_pass_a_plain(y, g, w1, b1, w2, row_scale, gelu):
     """Pass A: z = y W1^T + b1 and u = g W2 in fp32; -> (dz = s u gelu'(z),
     s h in y's dtype (rows, H); drs partials sum_j h u over each 128-column
@@ -447,7 +573,7 @@ def ln_mlp_residual_bwd_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: fl
         rs = slice(r0, r0 + plan.chunk_rows)
         xc, gc = x[rs], g[rs]
         sc = row_scale[rs] if row_scale is not None else None
-        y = _k7_ln_rows_plain(xc, ln_w, ln_b, eps)
+        y = _k2_ln_rows_plain(xc, ln_w, ln_b, eps)[0]   # K7's first pass
         dz, hs, drs_part, db1_part = _k7_pass_a_plain(y, gc, w1, b1, w2, sc, gelu)
         dy = _k7_pass_b_plain(dz, w1)
         dx, drs, ln_part = _k7_ln_bwd_plain(xc, gc, dy, ln_w, b2, sc, drs_part, eps,
@@ -631,25 +757,11 @@ class FusedLnMlpResidualFn(torch.autograd.Function):
         return (*grads, None, None, None, None, None, None)
 
 
-def _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps):
-    """K3 (mask None) or K3M: out = LN(x + [mask *] (fc2(gelu(fc1 x)) + b2))."""
-    out, bufs = _kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, (768,),
-                             _POSTLN_SPLITS * _HIDDEN_CHUNK)
-    if mask is not None:
-        _build.require(mask, "mask", torch.float32, x.device, x.shape)
-    # the splits' fp32 partial sums, added up by the kernel's second pass
-    partial = torch.empty((_POSTLN_SPLITS,) + tuple(x.shape), dtype=torch.float32,
-                          device=x.device)
-    _build.launch("clover_mlp_postln", *bufs, mask, partial, *x.shape, w1.shape[0],
-                  _POSTLN_SPLITS, float(eps), _build.stream(x.device))
-    return out
-
-
 def fused_mlp_postln(x, ln_w, ln_b, w1, b1, w2, b2, eps: float = 1e-12):
     """``LN(x + fc2(gelu_erf(fc1(x))))`` over 2-D x (rows, C)."""
     if not x.is_cuda:
         return mlp_postln_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-    out = _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, None, eps)
+    out = mlp_postln_passes(x, ln_w, ln_b, w1, b1, w2, b2, None, eps)
     fused_mlp_postln.launches += 1
     return out
 
@@ -673,7 +785,7 @@ def fused_mlp_postln_dropout(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps: float = 1
     dropout). K3M on the card."""
     if not x.is_cuda:
         return mlp_postln_mask_plain(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps)
-    out = _launch_postln(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps)
+    out = mlp_postln_passes(x, ln_w, ln_b, w1, b1, w2, b2, mask, eps)
     fused_mlp_postln_dropout.launches += 1
     return out
 
