@@ -15,7 +15,7 @@ Phases, in order; any failure raises and exits non-zero:
 4. drive the eval path -- make_embed_eval_step + run_retrieval_eval over a
    few batches of seeded random clips and captions, with seeded random
    weights -- and check the per-forward launch counts, finite embeddings
-   and the R@K metrics;
+   and the R@K metrics (with --profile, trace its forwards);
 5. run the same batches through the plain versions on the card, compare the
    embeddings (cosine per row) and print clips/s of both paths;
 5b. the 32-frame retrieval eval (B=32 clips of 32 x 224^2: Swin-B's 8x7x7
@@ -76,9 +76,10 @@ Phases, in order; any failure raises and exits non-zero:
    equal), K2's training form without the stash, K6, K1, K5 and K3M (13024
    fusion rows) at the path's shapes; then 5 steps with the kernels and
    with the plain versions as in 8c (and, with --profile, 3 more traced);
-8e. the 8-frame pretrain step through the pair K8a + K8b (the erf GELU,
-   every stage rematerialised, the stash off): K8a and K8b checked as K7,
-   then 3 steps on each path as in 8c;
+8e. the 8-frame pretrain step through the pair K8 (the erf GELU, every
+   stage rematerialised, the stash off; K7's passes with the erf GELU): K8
+   checked as K7, then 3 steps on each path as in 8c (and, with --profile,
+   traced);
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -93,7 +94,12 @@ blocks, the fp32 (nW, N, N) mask, each laid out in the order of the
 kernels' mma accumulators (one 16-byte load per lane and 8-key tile; the
 wrapper lays them out, the Swin model passes the forms it caches); their
 rows time the public call with that layout and print the kernel on the
-cached forms first. K11 reads the bf16 bias and the region ids.
+cached forms first. K1 and K11 read the bf16 bias in that order and the
+region ids; K1's rows time the public call on the terms the model hands it
+("ms": in eval on the cached bias's layout, made once; in training on the
+terms gathered from the relative-position table, the gather timed with it
+as a step runs it once per block forward) and with the wrapper's layout
+("layout_ms"), both bitwise equal, with SDPA beside them.
 
 Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 """
@@ -123,7 +129,7 @@ TOL = {"K1": (2e-2, 1e-2), "K2": (2e-2, 2e-2), "K3": (2e-2, 2e-2), "K4": (1e-2, 
        # same values rounded to bf16 (checked), and rstd's below an eps of
        # 1e-6 for 1e-5 at unit variance (~4.5e-6)
        "K5 dbias": (0.0, 1e-5), "K2S mean": (0.0, 1e-5), "K2S rstd": (0.0, 2e-6),
-       "K3M": (2e-2, 2e-2), "K2T": (2e-2, 2e-2), "K7": (2e-2, 2e-2), "K8a": (2e-2, 2e-2),
+       "K3M": (2e-2, 2e-2), "K2T": (2e-2, 2e-2), "K7": (2e-2, 2e-2), "K8": (2e-2, 2e-2),
        "K9": (2e-2, 1e-2), "K10": (2e-2, 1e-2), "K11": (2e-2, 1e-2), "K11h": (2e-2, 1e-2)}
 # the 32-frame retrieval eval (bench.py's BENCH_FRAMES=32, B=32): every
 # Swin block at N=392 through the fused half-block K6
@@ -169,10 +175,10 @@ PRETRAIN_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24, "K3M": 3}
 PT32 = 32
 PRETRAIN32_LAUNCHES = {"K6": 28, "K1": 24, "K5": 24, "K2T": 28, "K7": 24, "K3M": 3}
 # the pair's path: the 8-frame pretrain step with the erf GELU, every Swin
-# stage rematerialised, the stash off, mlp_bwd='pair' (K8a then K8b); K1 runs
-# in each block's forward and again in its recompute
+# stage rematerialised, the stash off, mlp_bwd='pair' (K8, K7's passes with
+# the erf GELU); K1 runs in each block's forward and again in its recompute
 PRETRAIN_ERF_STEPS = 3
-PRETRAIN_ERF_LAUNCHES = {"K1": 48, "K5": 24, "K2T": 48, "K8a": 24, "K8b": 24, "K3M": 3}
+PRETRAIN_ERF_LAUNCHES = {"K1": 48, "K5": 24, "K2T": 48, "K8": 24, "K3M": 3}
 # the recompute backward's fp32 outputs (dln_w, dln_b, dW1, db1, dW2, db2,
 # drs) against the plain version run in fp32 on the same inputs: the kernel
 # keeps z and dh in fp32 where the plain version rounds them to bf16, so each
@@ -482,20 +488,14 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
         qkv = randn(Bn * N, 3 * C)
         bias = randn(nH, N, N, dtype=torch.float32)
         rid = None if ids is None else torch.from_numpy(ids).to(dev)
-
-        def k():
-            return ops.flat2_window_attention(qkv, bias, rid, scale, nH, N)
-
-        def p():
-            return ops.window_attention_plain(qkv, bias, rid, scale, nH, N)
-
+        k, kl, _ = k1_calls(qkv, bias, rid, scale, nH, N)
+        p = lambda: ops.window_attention_plain(qkv, bias, rid, scale, nH, N)   # noqa: E731
         if ids is None:
             library[(Bn, N, nH)] = sdpa_ms(qkv, bias, nH, N, scale, 5)
-        out, ref = k(), p()
         record("K1", "flat2_window_attention", f"Bn={Bn} N={N} nH={nH} "
-               f"mask={'yes' if ids is not None else 'no'}", out, ref,
+               f"mask={'yes' if ids is not None else 'no'}", k1_checked(k, kl), p(),
                cuda_ms(k, 5), cuda_ms(p, 5), count, work=attention_work(Bn, N, nH, ids),
-               lib=library.get((Bn, N, nH), 0.0))
+               lib=library.get((Bn, N, nH), 0.0), layout=cuda_ms(kl, 5))
 
     for (Bn, N, nH, ids), count in calls["K6"]:
         C = nH * 32
@@ -543,6 +543,32 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
     return results
 
 
+def k1_calls(qkv, bias, rid, scale, nH, N):
+    """K1's public call on the terms the model hands it (the bias laid out
+    in accumulator order once, as the eval cache's and the table gather's
+    are) and with the wrapper's layout; -> (on terms, with layout, terms)."""
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.ops import window_attention as wa
+
+    terms = wa.fragment_bias(bias.to(torch.bfloat16), N, wa.key_tiles(N))
+    return (lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N, terms),
+            lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N), terms)
+
+
+def k1_checked(k, kl):
+    """K1's output on the model's terms, checked bitwise against a second
+    call and against the call with the wrapper's layout."""
+    import torch
+
+    out, again, laid = k(), k(), kl()
+    torch.cuda.synchronize()
+    check(torch.equal(out, again), "K1: two calls on the same inputs differ")
+    check(torch.equal(out, laid), "K1: the model's terms and the wrapper's layout differ")
+    return out
+
+
 def k2_chunks_check(k, planned, rows, C):
     """K2 at one eval shape run again with its chunk caps set so that the
     passes take the rows in one chunk and in 3: each bitwise the call in
@@ -574,17 +600,18 @@ def k2_chunks_check(k, planned, rows, C):
 
 
 def recorder(results, per):
-    """record(key, name, label, out, ref, t_k, t_p, count, part, work, lib, err):
-    check one kernel output against its plain version (``err`` given: an
-    error the caller has checked against its own limits), print it, and add
-    the times (count calls per ``per``) to results[key]: kernel and plain
-    ms, the bound (``work``: (operations ms, bytes ms) of one call) and the
-    library call's ms (``lib``; None where no PyTorch call computes the
-    function)."""
+    """record(key, name, label, out, ref, t_k, t_p, count, part, work, lib, err,
+    layout): check one kernel output against its plain version (``err``
+    given: an error the caller has checked against its own limits), print
+    it, and add the times (count calls per ``per``) to results[key]: kernel
+    and plain ms, the bound (``work``: (operations ms, bytes ms) of one
+    call), the library call's ms (``lib``; None where no PyTorch call
+    computes the function) and K1's public call with the wrapper's layout
+    (``layout``)."""
     import torch
 
     def record(key, name, label, out, ref, t_k, t_p, count, part=None, work=None, lib=None,
-               err=None):
+               err=None, layout=None):
         checked = err is not None   # the caller held the output to its own limits
         if not checked:
             err = (out.float() - ref.float()).abs().max().item()
@@ -607,6 +634,8 @@ def recorder(results, per):
             extra = f" bound={max(work):.4f} ms ({'operations' if work[0] >= work[1] else 'bytes'})"
         if lib is not None:
             extra += f" library={lib:.4f} ms"
+        if layout is not None:
+            extra += f" with the wrapper's layout={layout:.4f} ms"
         print(f"{key} {name} {label}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
               f"rel={err / max(scale, 1e-30):.2e} tol={tol:.3e}{control} "
               f"kernel={t_k:.4f} ms plain={t_p:.4f} ms{extra} x{count}/{per} "
@@ -623,6 +652,8 @@ def recorder(results, per):
             r["bytes_ms"] += work[1] * count
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib * count
+        if layout is not None:
+            r["layout_ms"] = r.get("layout_ms", 0.0) + layout * count
         check(ok, f"{key} {label}: kernel disagrees with its plain version")
 
     return record
@@ -641,11 +672,12 @@ def attn_block_weights(randn, C):
 
 def train_path_shapes(cfg, frames=TT):
     """Per-step kernel calls of a train step of TB clips at ``frames`` frames:
-    {kernel: [(args, count)]} (K1: (args, count, K5's count)). K1 and K5 run
+    {kernel: [(args, count)]} (K1: (args, count, K5's count, window, the
+    table gathers of its terms, one a block forward)). K1 and K5 run
     once per Swin block at the same shapes (below N=384 K1 in the forward;
     at N >= 384 in the recompute of K6's backward, K6 in the forward). The
     MLP half runs K2's stash form once per block, or with the stash off K2's
-    training form and the recompute backward (K7, or K8a + K8b: key 'K8').
+    training form and the recompute backward (K7, or K8).
     A block of a rematerialised stage runs its forward twice (K1 below
     N=384, K6, K2). LayerNorm and the BERT FFN stay plain in training."""
     from clover_tpu_torch.models.swin3d import (_shift_region_ids, effective_window,
@@ -666,7 +698,8 @@ def train_path_shapes(cfg, frames=TT):
         fused = fused_attn_enabled(sw.fused_attn, N)
         for mask, n in ((None, depth - n_shifted), (ids, n_shifted)):
             if n:
-                calls["K1"].append(((rows // N, N, nH, mask), n if fused else fwd * n, n))
+                calls["K1"].append(((rows // N, N, nH, mask), n if fused else fwd * n, n,
+                                    window, fwd * n))
                 if fused:
                     calls["K6"].append(((rows // N, N, nH, mask), fwd * n))
         if sw.mlp_stash:
@@ -680,14 +713,16 @@ def train_path_shapes(cfg, frames=TT):
 
 def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
     """K1, K5, K2's stash form (or, with the stash off, its training form and
-    K7 or K8a + K8b) and, at 32 frames, K6 with a row scale against their
+    K7 or K8) and, at 32 frames, K6 with a row scale against their
     plain versions at the shapes of a train step of TB clips; times per
     train step."""
     import torch
 
     from clover_tpu_torch import ops
-    from clover_tpu_torch.models.swin3d import _shift_region_ids
+    from clover_tpu_torch.models.swin3d import (_shift_region_ids, bias_from_table,
+                                                k1_terms_from_table, table_ext)
     from clover_tpu_torch.ops.bwd_sweep import launch_ms
+    from clover_tpu_torch.ops import window_attention as wa
 
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -699,28 +734,50 @@ def train_kernel_phase(cfg, dev, results, frames=TT, seed=SEED + 1):
     if frames == TT:
         # the region mask at nH=32 too (stage 3 has no shifted block at 12 frames)
         ids_extra = _shift_region_ids((6, 14, 14), (6, 7, 7), (0, 3, 3))[:1]
-        calls["K1"].append(((TB, 294, 32, ids_extra), 0, 0))
+        calls["K1"].append(((TB, 294, 32, ids_extra), 0, 0, (6, 7, 7), 0))
     scale = 32 ** -0.5
+    full = tuple(cfg.swin.window_size)
     library = {}   # SDPA forward and backward per unshifted shape
-    for (Bn, N, nH, ids), count, count5 in calls["K1"]:
+    for (Bn, N, nH, ids), count, count5, window, gathers in calls["K1"]:
         C = nH * 32
         qkv, grad = randn(Bn * N, 3 * C), randn(Bn * N, C)
-        bias = randn(nH, N, N, dtype=torch.float32)
+        table = randn(int(np.prod([2 * w - 1 for w in full])), nH, dtype=torch.float32)
+        bias = bias_from_table(table, full, window, nH)
         rid = None if ids is None else torch.from_numpy(ids).to(dev)
         label = f"Bn={Bn} N={N} nH={nH} mask={'yes' if ids is not None else 'no'}"
         if ids is None:
             library[Bn, N, nH] = (sdpa_ms(qkv, bias, nH, N, scale, 5),
                                   sdpa_ms(qkv, bias, nH, N, scale, 3, grad))
         lib_f, lib_b = library.get((Bn, N, nH), (0.0, 0.0))
-        k = lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N)   # noqa: E731
+        # K1 on the terms gathered from the table in the same call, as a
+        # block's forward runs it (K6's recompute at N >= 384 reads the
+        # terms of its forward: the gathers past one a K1 call are added)
+        ext = table_ext(table)   # the module's kept buffer
+        gather = lambda: k1_terms_from_table(table, full, window, ext)   # noqa: E731
+        terms = gather()
+        check(torch.equal(terms, wa.fragment_bias(bias.bfloat16(), N, wa.key_tiles(N))),
+              f"K1 {label}: the table's gather differs from the wrapper's layout")
+        k = lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N,   # noqa: E731
+                                               gather())
+        kl = lambda: ops.flat2_window_attention(qkv, bias, rid, scale, nH, N)   # noqa: E731
         p = lambda: ops.window_attention_plain(qkv, bias, rid, scale, nH, N)   # noqa: E731
-        record("K1", "flat2_window_attention", label, k(), p(), cuda_ms(k, 5), cuda_ms(p, 3),
-               count, work=attention_work(Bn, N, nH, ids), lib=lib_f)
+        t_gather, t_k = cuda_ms(gather, 5), cuda_ms(k, 5)
+        print(f"K1 {label}: the table gather {t_gather:.4f} ms x{gathers}/step", flush=True)
+        record("K1", "flat2_window_attention", label, k1_checked(k, kl), p(),
+               t_k + (gathers - count) * t_gather / max(count, 1), cuda_ms(p, 3), count,
+               work=attention_work(Bn, N, nH, ids), lib=lib_f, layout=cuda_ms(kl, 5))
+        # K5 on the terms the model gathers (its transposed form gathered
+        # from them), as the step runs it; bitwise the call that lays both
+        # out itself
         kb = lambda: ops.flat2_window_attention_bwd(   # noqa: E731
-            qkv, bias, rid, grad, scale, nH, N)
+            qkv, bias, rid, grad, scale, nH, N, terms)
         pb = lambda: ops.window_attention_bwd_plain(   # noqa: E731
             qkv, bias, rid, grad, scale, nH, N)
         (dqkv, dbias), (rdqkv, rdbias) = kb(), pb()
+        laid = ops.flat2_window_attention_bwd(qkv, bias, rid, grad, scale, nH, N)
+        check(torch.equal(dqkv, laid[0]) and torch.equal(dbias, laid[1]),
+              f"K5 {label}: the model's terms and the wrapper's layout differ")
+        del laid
         t_k, t_p = cuda_ms(kb, 5), cuda_ms(pb, 2)
         print(f"K5 launches {label} (device ms per call, torch.profiler): " + "; ".join(
             f"{n} {t:.4f}" for n, t in launch_ms(kb, 3).items()), flush=True)
@@ -801,12 +858,12 @@ def sample_scale(g, dev, rows):
 
 
 def mlp_bwd_check(record, key, rows, C, gelu, rs, count, randn):
-    """K7 (key 'K7') or K8a + K8b ('K8') against the plain recompute backward
-    at one shape: dx within K2's limits of the plain version; each fp32
-    output against the plain version run in fp32 (BWD_ERR_*); two launches
-    bitwise equal; kernel and plain times, the bound (the kernel's products:
-    K7 z, u, dh's W2 product folded into u, dy, dW1, dW2 = 10 rows C H
-    flops; K8a z, u, dy = 6; K8b z, u, dW1, dW2 = 8)."""
+    """K7 (key 'K7') or K8 ('K8', the erf GELU) against the plain recompute
+    backward at one shape: dx within K2's limits of the plain version; each
+    fp32 output against the plain version run in fp32 (BWD_ERR_*); two
+    launches bitwise equal; kernel and plain times, the bound (the
+    function's products: z, u, dh's W2 product folded into u, dy, dW1, dW2
+    = 10 rows C H flops)."""
     import torch
 
     from clover_tpu_torch import ops
@@ -818,14 +875,8 @@ def mlp_bwd_check(record, key, rows, C, gelu, rs, count, randn):
     args = (x, *w, rs, 1e-5, gelu, grad)
     ref = ops.ln_mlp_residual_bwd_recompute(x.float(), *w, rs, 1e-5, gelu, grad.float())
     plain = ops.ln_mlp_residual_bwd_recompute(*args)
-    if key == "K7":
-        parts = {"K7": (ops.ln_mlp_residual_bwd_onepass, 10, "ln_mlp_residual_bwd_onepass")}
-        got = parts["K7"][0](*args)
-    else:
-        parts = {"K8a": (ops.ln_mlp_bwd_dx, 6, "ln_mlp_bwd_dx"),
-                 "K8b": (ops.ln_mlp_bwd_dw, 8, "ln_mlp_bwd_dw")}
-        got = ops.ln_mlp_residual_bwd_pair(*args)
-    again = ops.ln_mlp_residual_bwd_pair(*args) if key == "K8" else parts["K7"][0](*args)
+    fn = {"K7": ops.ln_mlp_residual_bwd_onepass, "K8": ops.ln_mlp_residual_bwd_pair}[key]
+    got, again = fn(*args), fn(*args)
     torch.cuda.synchronize()
     label = f"rows={rows} C={C} gelu={gelu} row_scale={'yes' if rs is not None else 'no'}"
     check(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, again)),
@@ -847,16 +898,9 @@ def mlp_bwd_check(record, key, rows, C, gelu, rs, count, randn):
     # bytes: x and g in, dx out (bf16), the fp32 weights in and the fp32
     # parameter gradients out, the row scale in and drs out
     rsb = 0 if rs is None else 8 * rows
-    nbytes = {"K7": 6 * rows * C + 16 * C * H + rsb, "K8a": 6 * rows * C + 8 * C * H + rsb,
-              "K8b": 4 * rows * C + 16 * C * H + rsb // 2}
-    for part, (fn, products, name) in parts.items():
-        work = bound_ms(flops=products * rows * C * H, nbytes=nbytes[part])
-        t_k = cuda_ms(lambda: fn(*args), 3)
-        if part == "K8b":   # dW1, checked above; its error against the fp32 reference
-            record(part, name, label, got[3], ref[3], t_k, t_p, count, "dw1", work=work,
-                   err=(got[3] - ref[3]).abs().max().item())
-        else:
-            record(part, name, label, got[0], plain[0], t_k, t_p, count, "dx", work=work)
+    work = bound_ms(flops=10 * rows * C * H, nbytes=6 * rows * C + 16 * C * H + rsb)
+    record(key, fn.__name__, label, got[0], plain[0], cuda_ms(lambda: fn(*args), 3), t_p, count,
+           "dx", work=work)
 
 
 def mlp_weights(randn, C, H):
@@ -937,12 +981,10 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
     ("K6 proj + residual", ("k6_proj_pass",)),
     ("K11 key-tiled window attention", ("flash_window_attention_kernel",)),
     ("K9 / K10 head-major, grid attention", ("window_attention_heads_kernel",)),
-    ("K1 window attention", ("window_attention_kernel",)),
+    ("K1 window attention", ("k1_walk_kernel",)),
     ("K2 / K3 MLP LN rows + fc1 GEMM", ("mlp_ln_rows", "mlp_fc1_pass")),
     ("K2 / K3 MLP fc2 GEMM + K3 finish", ("mlp_fc2_pass", "postln_finish")),
-    ("K7 recompute MLP backward, passes", ("k7_",)),
-    ("K8a MLP backward, row kernel", ("bwd_rows_kernel", "sum_slots")),
-    ("K8b MLP backward, dW kernel", ("bwd_dw_kernel",)),
+    ("K7 / K8 recompute MLP backward, passes", ("k7_",)),
     ("K4 LayerNorm", ("layer_norm_kernel",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
     ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
@@ -1030,7 +1072,7 @@ def launch_counts():
                 "K5": ops.flat2_window_attention_bwd, "K2S": ops.fused_ln_mlp_residual_stash,
                 "K6": ops.fused_window_attn_block, "K3M": ops.fused_mlp_postln_dropout,
                 "K2T": ops.fused_ln_mlp_residual_train, "K7": ops.ln_mlp_residual_bwd_onepass,
-                "K8a": ops.ln_mlp_bwd_dx, "K8b": ops.ln_mlp_bwd_dw,
+                "K8": ops.ln_mlp_residual_bwd_pair,
                 "K9": ops.fused_window_attention, "K10": ops.spatial_window_attention,
                 "K11": ops.flat_flash_window_attention, "K11h": ops.flash_window_attention}
     return {k: fn.launches for k, fn in wrappers.items()}
@@ -1134,7 +1176,7 @@ def pretrain32_config():
 
 def pretrain_erf_config():
     """The pair's path: 8 frames, the erf GELU, every stage rematerialised,
-    the stash off, the MLP backward through K8a + K8b."""
+    the stash off, the MLP backward through K8."""
     return pretrain_config(PT, gelu="erf", use_checkpoint=True, mlp_stash=False, mlp_bwd="pair")
 
 
@@ -1411,10 +1453,11 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke run of clover_tpu_torch on one CUDA card.")
     ap.add_argument("--profile", action="store_true",
-                    help="trace the kernel path's 32-frame eval forwards, the forwards of "
-                         "each phase-5c path (E8H, E8S, E8P, E32L) and each path's 12- and "
-                         "32-frame finetune steps and pretrain steps with torch.profiler and "
-                         "print the device time by kernel family")
+                    help="trace the kernel path's 8- and 32-frame eval forwards, the "
+                         "forwards of each phase-5c path (E8H, E8S, E8P, E32L) and each "
+                         "path's 12- and 32-frame finetune steps and pretrain steps (P32 and "
+                         "P8E too) with torch.profiler and print the device time by kernel "
+                         "family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1463,6 +1506,8 @@ def main(argv=None) -> int:
     check(bool(torch.isfinite(v).all() and torch.isfinite(t).all()), "non-finite embedding")
     check(set(metrics) >= {"Recall@1", "Recall@5", "Recall@10", "MR"}, f"metrics {metrics}")
     print(f"kernel path R@K: {metrics}", flush=True)
+    if profile:
+        profile_eval_path(model, cfg, batches, dev, B * 1e3 / cps, "kernel 8-frame eval path")
 
     ops.reset_launch_counts()
     p_metrics = drive_main_path(plain, cfg, batches)
@@ -1525,12 +1570,12 @@ def main(argv=None) -> int:
     pre32_counts = pretrain_phase(dev, card, profile, p32cfg, PT32, PRETRAIN32_LAUNCHES,
                                   tag=f"pretrain ({PT32} frames, remat 0-1, K7)")
 
-    # the 8-frame pretrain step through the pair (K8a + K8b)
+    # the 8-frame pretrain step through the pair (K8)
     print(card_line(), flush=True)
     pre_erf = {}
     ecfg = pretrain_erf_config()
     train_kernel_phase(ecfg, dev, pre_erf, PT, SEED + 10)
-    pre_erf_counts = pretrain_phase(dev, card, False, ecfg, PT, PRETRAIN_ERF_LAUNCHES,
+    pre_erf_counts = pretrain_phase(dev, card, profile, ecfg, PT, PRETRAIN_ERF_LAUNCHES,
                                     PRETRAIN_ERF_STEPS, f"pretrain ({PT} frames, erf, remat, K8)")
 
     # one row per kernel and path: launches over the path's run, ms summed
@@ -1545,8 +1590,7 @@ def main(argv=None) -> int:
                "K3M": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:418"),
                "K2T": ("csrc/mlp_block.cu", "clover_tpu/ops/mlp_block.py:565"),
                "K7": ("csrc/mlp_block_bwd_passes.cu", "clover_tpu/ops/mlp_block.py:942"),
-               "K8a": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:1008"),
-               "K8b": ("csrc/mlp_block_bwd.cu", "clover_tpu/ops/mlp_block.py:1008")}
+               "K8": ("csrc/mlp_block_bwd_passes.cu", "clover_tpu/ops/mlp_block.py:1008")}
     # at N=392 the TPU runs the attention and its backward as the head-group
     # kernels, which K1 and K5 replace there
     sources32 = dict(sources, K1=(sources["K1"][0], "clover_tpu/ops/window_attention.py:989"),
@@ -1583,14 +1627,15 @@ def main(argv=None) -> int:
              for k in ("K6", "K1", "K5", "K2T", "K7", "K3M")]
     rows += [(k, pre_erf, pre_erf_counts,
               f"pretrain-erf-pair, ms per step, launches over {PRETRAIN_ERF_STEPS} steps", sources)
-             for k in ("K8a", "K8b", "K1", "K5", "K2T")]
+             for k in ("K8", "K1", "K5", "K2T")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],
               "ms": res[k]["ms"], "plain_ms": res[k]["plain_ms"],
               "bound_ms": res[k]["bound_ms"],
               "bound_by": "operations" if res[k]["ops_ms"] >= res[k]["bytes_ms"] else "bytes",
-              "library_ms": res[k]["library_ms"], "path": path}
+              "library_ms": res[k]["library_ms"], "path": path,
+              **({"layout_ms": res[k]["layout_ms"]} if "layout_ms" in res[k] else {})}
              for k, res, n, path, src in rows]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

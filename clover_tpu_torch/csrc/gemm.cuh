@@ -22,8 +22,8 @@ constexpr int kBN = 128;        // output columns of a GEMM block tile
 constexpr int kStages = 3;      // the cp.async ring
 constexpr int kPadE = 8;        // row padding of a stage tile, elements
 
-// A row's LN statistics, one warp, two passes over x (as stage_rows in
-// mlp_block_bwd.cu); lane l owns the column pairs l, l + 32, ...
+// A row's LN statistics, one warp, two passes over x (the mean, then the
+// centred squares); lane l owns the column pairs l, l + 32, ...
 __device__ __forceinline__ void row_stats(const __nv_bfloat162* xr, int C2, float eps, int lane,
                                           float& mean, float& rstd) {
   float sum = 0.f;

@@ -1,17 +1,25 @@
-// K7: the recompute backward of the Swin MLP half as passes of tiled GEMMs
+// K7 and K8: the recompute backward of the Swin MLP half as passes of tiled
+// GEMMs
 //
 //   out = x + s * (gelu(LN(x) W1^T + b1) W2^T + b2)
 //
 // from x, the parameters, the optional per-row DropPath scale s and the
-// incoming gradient g (the function of csrc/mlp_block_bwd.cu's header):
-//   y = bf16(LN(x)), z = y W1^T + b1 (fp32), h = gelu(z), u = g W2,
-//   dz = s u gelu'(z), dy = bf16(dz) W1, dx = LN backward of dy + g,
+// incoming gradient g, with LN, fc1 and GELU recomputed:
+//   y = bf16(LN(x)), z = y W1^T + b1 (fp32), h = gelu(z),
+//   u = g W2 (so that dh = s u = (g s) W2), dz = s u gelu'(z),
+//   dy = bf16(dz) W1, dx = LN backward of dy + g (bf16),
 //   dscale = sum_r dy xn, dbias = sum_r dy, db2 = sum_r g s,
 //   dW1 = bf16(dz)^T y, db1 = sum_r dz, dW2 = g^T bf16(s h),
-//   drs = sum_j h u + g . b2 (per row, where s is given).
+//   drs = sum_c g (h W2^T + b2) = sum_j h u + g . b2 (per row, where s is
+//   given).
+// g is bf16, so g W2 and g^T bf16(s h) take it exactly: the row scale is
+// applied in fp32 to u and folded into the one rounding of s h.
 //
 // K7 replaces clover_tpu/ops/mlp_block.py::_backward_onepass
-// (_kernel_bwd_onepass, tanh or erf). The TPU kernel carries dW1 / dW2 in
+// (_kernel_bwd_onepass, tanh or erf). K8 replaces ::_backward_pallas (the
+// pair _kernel_bwd_dx* / _kernel_bwd_dw*, erf only): the same function, so
+// the same passes with the erf GELU (ops/mlp_block.py::
+// ln_mlp_residual_bwd_pair; one C call, counted apart from K7's). The TPU kernel carries dW1 / dW2 in
 // VMEM from one grid step to the next, since its grid runs in order; on the
 // H100 blocks run at the same time, so the row sum of dW1 / dW2 is written
 // here as a GEMM with K = rows (split over row groups into fp32 slots,

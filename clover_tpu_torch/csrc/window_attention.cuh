@@ -1,9 +1,11 @@
 // Device code of one 16-row query strip of window attention, head dim 32:
-// softmax(scale * q k^T + bias [- 100 * (id_q != id_k)]) v, with q, k, v of
+// softmax(scale * q k^T + bias [- 100 * (id_q != id_k)]) v, with k, v of
 // one (window, head) staged in shared memory (Np = 16 * KT rows, zero
-// padded, row stride kLd). Shared by K1 (window_attention.cu), K9 / K10
-// (window_attention_heads.cu) and, its online-softmax step on one key tile
-// (strip_online), K11 and K6's attention pass (window_attention_flash.cu).
+// padded, row stride kLd) and q staged with them or loaded as the strip's
+// mma operands (K1 at 25 key tiles). Shared by K1 (window_attention.cu),
+// K9 / K10 (window_attention_heads.cu) and, its online-softmax step on one
+// key tile (strip_online), K11 and K6's attention pass
+// (window_attention_flash.cu).
 // What is added to the scaled logits is a template parameter ("terms":
 // add(n-tile, l[4])), and so is where a strip's output rows go ("out":
 // row(q)): K1's bf16 bias in accumulator order and
@@ -248,18 +250,15 @@ __device__ __forceinline__ void strip_part(float (&o)[4][4], const unsigned (&qa
   }
 }
 
-// Strip s (rows s*16 .. s*16+15) of one (window, head): the staged q, k, v
-// (qs, ks, vs) and the terms of the strip's logits; rows < N are written
-// to out.row(q).
+// Strip s (rows s*16 .. s*16+15) of one (window, head): the strip's q as
+// the A operand of its two k16 halves (qa), the staged k, v (ks, vs) and
+// the terms of the strip's logits; rows < N are written to out.row(q).
 template <int KT, class Terms, class Out>
-__device__ __forceinline__ void attend_strip_with(const bf16* qs, const bf16* ks, const bf16* vs,
-                                                  const Terms& terms, int s, int lane, int N,
-                                                  float scale, const Out& out) {
+__device__ __forceinline__ void attend_strip_qa(const unsigned (&qa)[2][4], const bf16* ks,
+                                                const bf16* vs, const Terms& terms, int s,
+                                                int lane, int N, float scale, const Out& out) {
   constexpr int NT = 2 * KT;  // 8-key n-tiles
   const int g = lane >> 2, tq = lane & 3;  // accumulator row / column pair of this lane
-  unsigned qa[2][4];
-  ldmatrix_x4(qa[0], a_tile_row(qs + s * 16 * kLd, kLd, lane));
-  ldmatrix_x4(qa[1], a_tile_row(qs + s * 16 * kLd + 16, kLd, lane));
   // this lane holds rows q0 = s*16 + g and q1 = q0 + 8
   const int q0 = s * 16 + g, q1 = q0 + 8;
   float o[4][4];
@@ -292,8 +291,47 @@ __device__ __forceinline__ void attend_strip_with(const bf16* qs, const bf16* ks
   }
 }
 
-// K1: strip s with the head's bias in accumulator order (bias_h) and
-// the window's region ids in shared memory (id_s, read only when masked);
+// The same with the strip's q staged in shared memory (qs, the q of row 0)
+template <int KT, class Terms, class Out>
+__device__ __forceinline__ void attend_strip_with(const bf16* qs, const bf16* ks, const bf16* vs,
+                                                  const Terms& terms, int s, int lane, int N,
+                                                  float scale, const Out& out) {
+  unsigned qa[2][4];
+  ldmatrix_x4(qa[0], a_tile_row(qs + s * 16 * kLd, kLd, lane));
+  ldmatrix_x4(qa[1], a_tile_row(qs + s * 16 * kLd + 16, kLd, lane));
+  attend_strip_qa<KT>(qa, ks, vs, terms, s, lane, N, scale, out);
+}
+
+// The A operand of query rows r0 .. r0+15 of one head straight from device
+// memory (q of row r at src + r * ld), rows >= N zero: the values
+// ldmatrix_x4 gives from the staged strip (lane 4 g + t holds rows r0 + g,
+// r0 + g + 8 at columns 16 kh + 2 t (+1) and 16 kh + 8 + 2 t (+1))
+__device__ __forceinline__ void load_q_strip(unsigned (&qa)[2][4], const bf16* src, long ld,
+                                             int r0, int N, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    const unsigned* row = reinterpret_cast<const unsigned*>(src + long(r) * ld) + tq;
+#pragma unroll
+    for (int kh = 0; kh < 2; ++kh) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) qa[kh][half + 2 * c] = r < N ? __ldg(row + kh * 8 + c * 4) : 0u;
+    }
+  }
+}
+
+// K1's terms of strip s: the head's bias in accumulator order (bias_h) and
+// the window's region ids in shared memory (id_s, read only when masked)
+template <int KT>
+__device__ __forceinline__ RegionTerms<> region_terms(const uint2* bias_h, const int* id_s,
+                                                      bool masked, int s, int lane) {
+  const int q0 = s * 16 + (lane >> 2);
+  return {bias_h + long(s) * 2 * KT * 32 + lane, id_s, masked, masked ? id_s[q0] : 0,
+          masked ? id_s[q0 + 8] : 0, lane & 3};
+}
+
+// K1: strip s with its q staged (qs) or as loaded operands (qa), K1's terms;
 // rows < N are written to out_b (the head's column 0 of the window's row 0)
 // at row stride ldo.
 template <int KT>
@@ -301,10 +339,17 @@ __device__ __forceinline__ void attend_strip(const bf16* qs, const bf16* ks, con
                                              const uint2* bias_h, const int* id_s, bool masked,
                                              int s, int lane, int N, float scale, bf16* out_b,
                                              int ldo) {
-  const int q0 = s * 16 + (lane >> 2);
-  const RegionTerms<> terms{bias_h + long(s) * 2 * KT * 32 + lane, id_s, masked,
-                            masked ? id_s[q0] : 0, masked ? id_s[q0 + 8] : 0, lane & 3};
-  attend_strip_with<KT>(qs, ks, vs, terms, s, lane, N, scale, RowStride{out_b, ldo});
+  attend_strip_with<KT>(qs, ks, vs, region_terms<KT>(bias_h, id_s, masked, s, lane), s, lane, N,
+                        scale, RowStride{out_b, ldo});
+}
+
+template <int KT>
+__device__ __forceinline__ void attend_strip(const unsigned (&qa)[2][4], const bf16* ks,
+                                             const bf16* vs, const uint2* bias_h,
+                                             const int* id_s, bool masked, int s, int lane,
+                                             int N, float scale, bf16* out_b, int ldo) {
+  attend_strip_qa<KT>(qa, ks, vs, region_terms<KT>(bias_h, id_s, masked, s, lane), s, lane, N,
+                      scale, RowStride{out_b, ldo});
 }
 
 }  // namespace wa

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -55,7 +56,10 @@ from clover_tpu_torch.ops.window_attention import (
     WindowAttentionFn,
     bias_terms,
     flat_from_heads,
+    fragment_bias,
+    fragment_index,
     heads_from_flat,
+    key_tiles,
     mask_terms,
 )
 
@@ -100,7 +104,7 @@ class SwinConfig:
     # backward (the JAX CLOVER_MLP_STASH, default on), or save x only and
     # recompute LN + fc1 + GELU in the backward by mlp_bwd: 'xla' plain
     # PyTorch, 'onepass' the kernel K7 (the JAX CLOVER_MLP_BWD1), 'pair'
-    # K8a + K8b (the JAX CLOVER_MLP_BWD=1; erf GELU only)
+    # K8 (the JAX CLOVER_MLP_BWD=1, K7's passes; erf GELU only)
     mlp_stash: bool = True
     mlp_bwd: str = "xla"
     # the window attention: 'auto' is the port's route, the TPU's
@@ -135,7 +139,7 @@ class SwinConfig:
                              f"got {self.use_checkpoint!r}")
         if self.attention_impl == "fused_block":
             raise ValueError("attention_impl='fused_block' (K6 on the spatial path) is not "
-                             "ported yet: ROADMAP.md Queue 1 item 4")
+                             "ported yet: ROADMAP.md Queue 1 item 2")
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
                              f"got {self.attention_impl!r}")
@@ -205,6 +209,45 @@ def bias_from_table(table: torch.Tensor, full_window: Tuple3, eff_window: Tuple3
         relative_position_index(tuple(full_window), tuple(eff_window)).reshape(-1).astype(np.int64))
     bias = table.float()[idx.to(table.device)].reshape(N, N, num_heads)
     return bias.permute(2, 0, 1).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_term_index(full_window: Tuple3, eff_window: Tuple3, device):
+    """The gather that lays K1's terms out straight from the relative-position
+    table: (int32 columns (kt 2 kt 8 4 2 2) of the table's (nH, table_len)
+    form extended by a column of zeros and one of -inf (``fragment_index``),
+    kt). A device constant per (window, device), made outside inference
+    mode so a train step can save what it gathers for its backward."""
+    with torch.inference_mode(False):
+        N = int(np.prod(eff_window))
+        L = int(np.prod([2 * w - 1 for w in full_window]))
+        rel = torch.from_numpy(relative_position_index(full_window, eff_window).astype(np.int64))
+        kt = key_tiles(N)
+        return fragment_index(rel[None], L, kt).flatten().to(device, torch.int32), kt
+
+
+def table_ext(table: torch.Tensor) -> torch.Tensor:
+    """The buffer K1's table gather reads: (nH, table_len + 2) bf16, the
+    table's columns (cast in by :func:`k1_terms_from_table`), then a column
+    of zeros and one of -inf. Made outside inference mode, so a module can
+    keep it for eval and training."""
+    with torch.inference_mode(False):
+        ext = torch.zeros(table.shape[1], table.shape[0] + 2, dtype=torch.bfloat16,
+                          device=table.device)
+        ext[:, -1] = float("-inf")
+    return ext
+
+
+def k1_terms_from_table(table: torch.Tensor, full_window: Tuple3, eff_window: Tuple3,
+                        ext: torch.Tensor) -> torch.Tensor:
+    """K1's bias terms from the (table_len, nH) table in two launches: the
+    table cast into ``ext`` (:func:`table_ext`) and one column gather, (nH,
+    kt, 2 kt, 8, 4, 2, 2) bf16, bitwise ``fragment_bias(bias_from_table(...))``.
+    Detached: the bias from ``bias_from_table`` stays the gradient's path to
+    the table."""
+    ext[:, :table.shape[0]].copy_(table.detach().t())
+    idx, kt = _k1_term_index(tuple(full_window), tuple(eff_window), table.device)
+    return ext.index_select(1, idx).view(table.shape[1], kt, 2 * kt, 8, 4, 2, 2)
 
 
 def swin_bias_cache(backbone: "SwinTransformer3D", cfg: SwinConfig,
@@ -353,7 +396,11 @@ class WindowAttention3D(nn.Module):
     gw, N, N) grid). K9 and K10 take their terms in accumulator order: the
     mask's from the caller (``mask_terms``, a device constant), the bias's
     laid out here, and kept in eval while the same bias tensor comes back
-    (the eval bias cache hands each block the same one every forward)."""
+    (the eval bias cache hands each block the same one every forward;
+    :meth:`_kept`). K1 and K5 take theirs the same way: a given (cached)
+    bias's laid out once and kept in eval, else gathered from the table once
+    a call (:func:`k1_terms_from_table`), shared by K1 and K5 (which gathers
+    its transposed form from them)."""
 
     def __init__(self, dim: int, full_window: Tuple3, num_heads: int, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, kernels: bool = True):
@@ -365,7 +412,9 @@ class WindowAttention3D(nn.Module):
         self.proj = Linear(dim, dim)
         table_len = int(np.prod([2 * w - 1 for w in self.full_window]))
         self.relative_position_bias_table = nn.Parameter(torch.zeros(table_len, num_heads))
-        self._bias_terms = None   # (bias, its terms) of the last eval call
+        self._bias_terms = None   # (weakref to the bias, its terms) of the last eval call
+        self._k1_bias = None      # the same for K1's terms
+        self._table_ext = None    # K1's table gather's buffer (table_ext)
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_(self.relative_position_bias_table, generator)
@@ -374,26 +423,58 @@ class WindowAttention3D(nn.Module):
         """(bias terms, mask terms) for K9 / K10 on the card, else None."""
         if not (self.kernels and bias.is_cuda):
             return None
-        memo = self._bias_terms
-        if memo is None or memo[0] is not bias:
+        return self._kept("_bias_terms", bias, lambda b: bias_terms(b, N)), mask_terms
+
+    def _kept(self, slot: str, bias: torch.Tensor, lay_out):
+        """``lay_out(bias)``, kept in ``slot`` in eval while the same bias
+        tensor comes back and lives: the module holds the bias weakly and
+        drops the result with it, and keeps nothing from a training call."""
+        memo = None if self.training else getattr(self, slot)
+        if memo is None or memo[0]() is not bias:
             with torch.no_grad():
-                memo = (bias, bias_terms(bias, N))
-            self._bias_terms = None if self.training else memo
-        return memo[1], mask_terms
+                memo = (weakref.ref(bias, lambda ref: self._forget(slot, ref)), lay_out(bias))
+        setattr(self, slot, None if self.training else memo)
+        return memo[1]
+
+    def _forget(self, slot: str, ref) -> None:
+        """Drop what ``slot`` keeps with the bias it was laid out from."""
+        memo = getattr(self, slot)
+        if memo is not None and memo[0] is ref:
+            setattr(self, slot, None)
+
+    def k1_terms(self, bias: torch.Tensor, given: bool, eff_window: Tuple3):
+        """K1's terms for ``WindowAttentionFn`` (K5 gathers its transposed
+        form from them), or None with ``kernels=False``. A ``given`` bias
+        (the eval cache) is laid out once and its terms kept in eval
+        (:meth:`_kept`); else they are gathered from the table through the
+        module's kept buffer."""
+        if not self.kernels:
+            return None
+        if not given:
+            table = self.relative_position_bias_table
+            if self._table_ext is None or self._table_ext.device != table.device:
+                self._table_ext = table_ext(table)
+            return k1_terms_from_table(table, self.full_window, eff_window, self._table_ext)
+        N = bias.shape[-1]
+        return self._kept("_k1_bias", bias, lambda b: fragment_bias(b, N, key_tiles(N)))
 
     def forward(self, x: torch.Tensor, eff_window: Tuple3, mask: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None, impl: str = "pallas_flat",
                 long_attn: str = "off",
                 mask_terms: Optional[torch.Tensor] = None) -> torch.Tensor:
         N = int(np.prod(eff_window))
+        given = bias is not None
         if bias is None:
             bias = bias_from_table(self.relative_position_bias_table, self.full_window,
                                    tuple(eff_window), self.num_heads)
         qkv = self.qkv(x)
         if x.ndim == 2:
             long_attn = long_attn if N >= LONG_ATTN_N else "off"
+            # K1 reads the terms in the forward, K5 in the backward (K11 lays its own out)
+            terms = (self.k1_terms(bias, given, eff_window)
+                     if long_attn == "off" or self.training else None)
             return self.proj(WindowAttentionFn.apply(qkv, bias, mask, self.scale, self.num_heads,
-                                                     N, self.kernels, long_attn))
+                                                     N, self.kernels, long_attn, terms))
         nH, hd = self.num_heads, self.dim // self.num_heads
         if x.ndim == 5:
             out = SpatialWindowAttentionFn.apply(qkv.view(*x.shape[:4], 3, nH, hd), bias, mask,
@@ -564,6 +645,7 @@ class SwinBlock3D(nn.Module):
         attn = self.attn
         N = int(np.prod(window))
         B, L, C = x.shape
+        given = bias is not None
         if bias is None:
             bias = bias_from_table(attn.relative_position_bias_table, attn.full_window,
                                    tuple(window), attn.num_heads)
@@ -580,7 +662,8 @@ class SwinBlock3D(nn.Module):
             row_scale = self.drop_path.sample_scale(B, generator, x.device).repeat_interleave(
                 L // N)
         out = FusedAttnBlockFn.apply(*args, row_scale, attn.scale, attn.num_heads, N,
-                                     self.norm1.eps, self.kernels)
+                                     self.norm1.eps, self.kernels,
+                                     attn.k1_terms(bias, given, tuple(window)))
         return out.view(B, L, C)
 
     def _mlp_half(self, x: torch.Tensor,

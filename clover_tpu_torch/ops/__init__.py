@@ -17,8 +17,6 @@ from clover_tpu_torch.ops.mlp_block import (  # noqa: F401
     fused_ln_mlp_residual_train,
     fused_mlp_postln,
     fused_mlp_postln_dropout,
-    ln_mlp_bwd_dw,
-    ln_mlp_bwd_dx,
     ln_mlp_residual_bwd_onepass,
     ln_mlp_residual_bwd_pair,
     ln_mlp_residual_bwd_passes,
@@ -54,7 +52,7 @@ from clover_tpu_torch.ops.window_attention import (  # noqa: F401
 KERNELS = (flat2_window_attention, fused_ln_mlp_residual, fused_mlp_postln, fused_layer_norm,
            flat2_window_attention_bwd, fused_ln_mlp_residual_stash, fused_window_attn_block,
            fused_mlp_postln_dropout, fused_ln_mlp_residual_train, ln_mlp_residual_bwd_onepass,
-           ln_mlp_bwd_dx, ln_mlp_bwd_dw, fused_window_attention, spatial_window_attention,
+           ln_mlp_residual_bwd_pair, fused_window_attention, spatial_window_attention,
            flash_window_attention, flat_flash_window_attention)
 
 

@@ -19,6 +19,7 @@ with ``-Xptxas -v`` and prints every kernel's registers and spills.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -39,14 +40,12 @@ _SIGNATURES = {
     "clover_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _P),
     "clover_ln_mlp_residual": (_P,) * 13 + (_I,) * 4 + (_F, _I, _P),
     "clover_mlp_postln": (_P,) * 11 + (_I,) * 4 + (_F, _P),
-    "clover_window_attention": (_P,) * 4 + (_I, _I, _I, _I, _I, _F, _P),
+    "clover_window_attention": (_P,) * 4 + (_I,) * 7 + (_F, _P),
     "clover_window_attention_bwd": (_P,) * 9 + (_I,) * 8 + (_F, _P),
     "clover_attn_block_qkv": (_P,) * 7 + (_I, _I, _F, _P),
     "clover_attn_block_attention": (_P,) * 4 + (_I,) * 4 + (_F, _P),
     "clover_attn_block_proj": (_P,) * 6 + (_I,) * 3 + (_P,),
-    "clover_mlp_bwd_rows": (_P,) * 14 + (_I,) * 4 + (_F, _I, _P),
     "clover_mlp_bwd_passes": (_P,) * 22 + (_I,) * 8 + (_F, _I, _P),
-    "clover_mlp_bwd_dw": (_P,) * 10 + (_I,) * 4 + (_F, _P),
     "clover_window_attention_heads": (_P,) * 6 + (_I,) * 6 + (_F, _P),
     "clover_window_attention_spatial": (_P,) * 4 + (_I,) * 10 + (_F, _P),
     "clover_flash_heads": (_P,) * 6 + (_I,) * 4 + (_F, _P),
@@ -166,6 +165,7 @@ def stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+@functools.lru_cache(maxsize=None)
 def sms(device) -> int:
     """The card's SM count, which the wrappers size their grids by."""
     import torch

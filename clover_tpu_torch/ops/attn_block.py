@@ -281,17 +281,19 @@ class LinearF32Fn(torch.autograd.Function):
 
 def composed_attn_block(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj,
                         row_scale, scale: float, num_heads: int, N: int, eps: float,
-                        kernels: bool):
+                        kernels: bool, terms=None):
     """The half-block from ops that each carry a backward (the JAX
     ``_composed_reference``): LN1 in fp32 rounded to x's dtype, the qkv
     product in fp32 plus b_qkv rounded, ``WindowAttentionFn`` (K1 and K5 with
-    ``kernels``, else their plain versions), the proj product in fp32 plus
-    b_proj, times the row scale, plus x in fp32, rounded once."""
+    ``kernels``, on ``terms`` where given, else their plain versions), the
+    proj product in fp32 plus b_proj, times the row scale, plus x in fp32,
+    rounded once."""
     M, C = x.shape
     acc = torch.promote_types(x.dtype, torch.float32)
     xn = layer_norm_plain(x, ln_w, ln_b, eps)
     qkv = LinearF32Fn.apply(xn, wqkv, bqkv).to(x.dtype)
-    o = WindowAttentionFn.apply(qkv, bias, region_ids, scale, num_heads, N, kernels)
+    o = WindowAttentionFn.apply(qkv, bias, region_ids, scale, num_heads, N, kernels, "off",
+                                terms)
     y = LinearF32Fn.apply(o, wproj, bproj)
     if row_scale is not None:
         y = (y.view(-1, N, C) * row_scale.to(acc)[:, None, None]).view(M, C)
@@ -307,34 +309,36 @@ class FusedAttnBlockFn(torch.autograd.Function):
     more there and K5 takes its backward), then ``torch.autograd.grad`` to x,
     the LN1 and qkv / proj parameters and the bias. The region ids and the
     row scale get no gradient (the JAX package's zero shift-mask-gradient
-    contract; the row scale is DropPath's draw).
+    contract; the row scale is DropPath's draw). ``terms``: K1's bias terms
+    for the recompute (and K5), as ``WindowAttentionFn`` takes them.
 
     ``FusedAttnBlockFn.apply(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids,
-    wproj, bproj, row_scale, scale, num_heads, N, eps, kernels)``"""
+    wproj, bproj, row_scale, scale, num_heads, N, eps, kernels[, terms])``"""
 
     @staticmethod
     def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, row_scale,
-                scale, num_heads, N, eps, kernels):
+                scale, num_heads, N, eps, kernels, terms=None):
         fwd = fused_window_attn_block if kernels else window_attn_block_plain
         out = fwd(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, scale, num_heads,
                   N, eps, row_scale)
         ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj,
-                              row_scale)
+                              row_scale, terms)
         ctx.args = (scale, num_heads, N, eps, kernels)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, row_scale = ctx.saved_tensors
+        (x, ln_w, ln_b, wqkv, bqkv, bias, region_ids, wproj, bproj, row_scale, terms
+         ) = ctx.saved_tensors
         leaves = [t.detach().requires_grad_() for t in (x, ln_w, ln_b, wqkv, bqkv, bias, wproj,
                                                          bproj)]
         with torch.enable_grad():
             out = composed_attn_block(*leaves[:6], region_ids, *leaves[6:], row_scale,
-                                      *ctx.args)
+                                      *ctx.args, terms)
         dx, dln_w, dln_b, dwqkv, dbqkv, dbias, dwproj, dbproj = torch.autograd.grad(
             out, leaves, g)
         return (dx, dln_w, dln_b, dwqkv, dbqkv, dbias, None, dwproj, dbproj, None, None, None,
-                None, None, None)
+                None, None, None, None)
 
 
 fused_window_attn_block.launches = 0

@@ -17,8 +17,8 @@
   (the JAX ``_xla_backward``, plain PyTorch GEMMs), K7
   (``ln_mlp_residual_bwd_onepass``, the JAX ``_backward_onepass``, as the
   passes of ``csrc/mlp_block_bwd_passes.cu``; their plain forms are
-  ``ln_mlp_residual_bwd_passes``) or the pair K8a + K8b
-  (``ln_mlp_residual_bwd_pair``, the JAX ``_backward_pallas``, erf only),
+  ``ln_mlp_residual_bwd_passes``) or K8 (``ln_mlp_residual_bwd_pair``, the
+  JAX ``_backward_pallas``, erf only: the same passes, counted apart),
   picked by ``FusedLnMlpResidualFn``'s ``mlp_bwd``.
 - ``fused_mlp_postln``: ``LN(x + gelu_erf(x W1^T + b1) W2^T + b2)``, the
   BERT post-LN half (port of ``::fused_mlp_postln``).
@@ -63,10 +63,8 @@ _K2_TILE = 128
 # peak (one chunk, h = 4 x, did on E8P's stage 0). K3's h and fp32 partial
 # (6 x) stay under the 8 x of fp32 partials its fused kernel held.
 _K2_HIDDEN_OVER_X = 2
-# rows a block of K8a and K8b by width (csrc/mlp_block_bwd.cu:
-# launch_rows_c, and bwd_dw_kernel's R, whose hidden chunk is 8192 / C)
-_BWD_ROWS = {128: 128, 256: 64, 512: 64, 1024: 32}
-_DW_ROWS = {128: 16, 256: 32, 512: 32, 1024: 32}
+# the widths K7's passes (csrc/mlp_block_bwd_passes.cu) are built for
+_K7_WIDTHS = (128, 256, 512, 1024)
 # K7 (csrc/mlp_block_bwd_passes.cu): its GEMM passes' output tiles are
 # _K7_TILE x _K7_TILE; its rows go in chunks whose dz and s h (two bf16
 # (rows, H) buffers) stay under _K7_HIDDEN_BYTES; its LN pass takes
@@ -389,42 +387,6 @@ def ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps:
                        want_drs)
 
 
-def _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g):
-    """Check the backward kernels' inputs; -> (W1, W1^T, W2^T as bf16, dx, drs)."""
-    rows, C = x.shape
-    H = w1.shape[0]
-    dev = x.device
-    _build.require(x, "x", torch.bfloat16, dev)
-    _build.require(g, "g", torch.bfloat16, dev, (rows, C))
-    for name, t, n in (("ln_w", ln_w, C), ("ln_b", ln_b, C), ("b1", b1, H), ("b2", b2, C)):
-        _build.require(t, name, torch.float32, dev, (n,))
-    if C not in _BWD_ROWS or tuple(w1.shape) != (H, C) or tuple(w2.shape) != (C, H) or H % 64:
-        raise ValueError(f"the MLP backward kernels take C in {tuple(_BWD_ROWS)}, w1 (H, C), "
-                         f"w2 (C, H) and H % 64 == 0; got x {tuple(x.shape)}, w1 "
-                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}")
-    drs = None
-    if row_scale is not None:
-        _build.require(row_scale, "row_scale", torch.float32, dev, (rows,))
-        drs = torch.empty(rows, dtype=torch.float32, device=dev)
-    w1b = w1.to(torch.bfloat16).contiguous()
-    return (w1b, w1b.t().contiguous(), w2.to(torch.bfloat16).t().contiguous(),
-            torch.empty_like(x), drs)
-
-
-def _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g):
-    """K8a: -> (dx, drs, [dscale, dbias, db2] as one fp32 buffer)."""
-    rows, C = x.shape
-    H = w1.shape[0]
-    w1b, w1t, w2t, dx, drs = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
-    slots = -(-rows // _BWD_ROWS[C])
-    part = torch.empty(slots * 3 * C, dtype=torch.float32, device=x.device)
-    out = torch.empty(3 * C, dtype=torch.float32, device=x.device)
-    _build.launch("clover_mlp_bwd_rows", x, ln_w, ln_b, w1b, w1t, b1, w2t, b2, g, row_scale, dx,
-                  drs, part, out, rows, C, H, slots, float(eps), int(gelu == "tanh"),
-                  _build.stream(x.device))
-    return dx, drs, out
-
-
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -603,8 +565,8 @@ def _launch_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g):
     _build.require(w2, "w2", torch.float32, dev, (C, H))
     for name, t, n in (("ln_w", ln_w, C), ("ln_b", ln_b, C), ("b1", b1, H), ("b2", b2, C)):
         _build.require(t, name, torch.float32, dev, (n,))
-    if C not in _BWD_ROWS or H % _K7_TILE:
-        raise ValueError(f"K7 takes C in {tuple(_BWD_ROWS)} and H % {_K7_TILE} == 0; got C={C}, "
+    if C not in _K7_WIDTHS or H % _K7_TILE:
+        raise ValueError(f"K7 takes C in {_K7_WIDTHS} and H % {_K7_TILE} == 0; got C={C}, "
                          f"H={H}")
     plan = k7_plan(rows, C, H, _build.sms(dev))
     drs = None
@@ -652,56 +614,23 @@ def _erf_only(gelu: str) -> None:
                          f"_backward_pallas), got {gelu!r}")
 
 
-def ln_mlp_bwd_dx(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: str, g):
-    """K8a, the pair's row kernel (the JAX ``_kernel_bwd_dx``), erf only.
-    -> (dx, dln_w, dln_b, db2, drs)."""
-    _erf_only(gelu)
-    if not x.is_cuda:
-        r = ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
-        return r[0], r[1], r[2], r[6], r[7]
-    dx, drs, out = _launch_rows(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
-    ln_mlp_bwd_dx.launches += 1
-    dscale, dbias, db2 = out.view(3, x.shape[1])
-    return dx, dscale, dbias, db2, drs
-
-
-def ln_mlp_bwd_dw(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: str, g):
-    """K8b, the pair's weight-gradient kernel (the JAX ``_kernel_bwd_dw``),
-    erf only. -> (dw1, db1, dw2)."""
-    _erf_only(gelu)
-    if not x.is_cuda:
-        r = ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
-        return r[3], r[4], r[5]
-    rows, C = x.shape
-    H = w1.shape[0]
-    w1b, _, w2t, _, _ = _bwd_kernel_args(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, g)
-    chunks = H // (8192 // C)
-    # enough (chunk, row group) blocks for two waves on the card's SMs
-    groups = min(-(-rows // _DW_ROWS[C]), max(1, math.ceil(2 * _build.sms(x.device) / chunks)))
-    stride = 2 * H * C + H
-    part = torch.empty(groups * stride, dtype=torch.float32, device=x.device)
-    out = torch.empty(stride, dtype=torch.float32, device=x.device)
-    _build.launch("clover_mlp_bwd_dw", x, ln_w, ln_b, w1b, b1, w2t, g, row_scale, part, out, rows,
-                  C, H, groups, float(eps), _build.stream(x.device))
-    ln_mlp_bwd_dw.launches += 1
-    dw1, dw2, db1 = out.split((H * C, H * C, H))
-    return dw1.view(H, C), db1, dw2.view(C, H)
-
-
 def ln_mlp_residual_bwd_pair(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps: float, gelu: str,
                              g):
-    """The recompute backward as the pair K8a (dx, dln_w, dln_b, db2, drs)
-    then K8b (dw1, db1, dw2), erf only (the JAX ``_backward_pallas``); for
-    CPU tensors ``ln_mlp_residual_bwd_recompute``.
+    """K8, the recompute backward of the JAX ``_backward_pallas`` (the pair
+    ``_kernel_bwd_dx`` / ``_kernel_bwd_dw``), erf only: K7's passes
+    (``csrc/mlp_block_bwd_passes.cu``, one C call) with the erf GELU,
+    counted on this wrapper; for CPU tensors their plain forms,
+    ``ln_mlp_residual_bwd_passes``. The weights are fp32 on the card.
     -> (dx, dln_w, dln_b, dw1, db1, dw2, db2, drs)."""
     _erf_only(gelu)
     if not x.is_cuda:
-        return ln_mlp_residual_bwd_recompute(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu,
-                                             g)
-    args = (x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
-    dx, dscale, dbias, db2, drs = ln_mlp_bwd_dx(*args)
-    dw1, db1, dw2 = ln_mlp_bwd_dw(*args)
-    return dx, dscale, dbias, dw1, db1, dw2, db2, drs
+        return ln_mlp_residual_bwd_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
+    C, H = x.shape[1], w1.shape[0]
+    dx, drs, out = _launch_passes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, eps, gelu, g)
+    ln_mlp_residual_bwd_pair.launches += 1
+    dw1, dw2, db1, tail = out.split((H * C, H * C, H, 3 * C))
+    dscale, dbias, db2 = tail.view(3, C)
+    return dx, dscale, dbias, dw1.view(H, C), db1, dw2.view(C, H), db2, drs
 
 
 # the recompute backward by route; the plain one skips drs (autograd takes
@@ -718,7 +647,8 @@ class FusedLnMlpResidualFn(torch.autograd.Function):
     backward ``ln_mlp_residual_bwd_stash``. With it off: forward K2's
     training form without a stash (or the plain one), saving x and the
     parameters only; the backward recomputes by ``mlp_bwd``: 'xla'
-    ``ln_mlp_residual_bwd_recompute``, 'onepass' K7, 'pair' K8a + K8b
+    ``ln_mlp_residual_bwd_recompute``, 'onepass' K7, 'pair' K8 (K7's passes,
+    erf only)
     (``kernels=False``: the plain recompute for every route). The row scale
     takes no gradient.
 
@@ -855,7 +785,6 @@ fused_ln_mlp_residual.launches = 0
 fused_ln_mlp_residual_stash.launches = 0
 fused_ln_mlp_residual_train.launches = 0
 ln_mlp_residual_bwd_onepass.launches = 0
-ln_mlp_bwd_dx.launches = 0
-ln_mlp_bwd_dw.launches = 0
+ln_mlp_residual_bwd_pair.launches = 0
 fused_mlp_postln.launches = 0
 fused_mlp_postln_dropout.launches = 0

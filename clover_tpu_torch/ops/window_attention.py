@@ -59,6 +59,7 @@ The other window-attention forwards of the JAX module:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -73,6 +74,7 @@ KEY_TILES = (4, 7, 13, 16, 19, 25)   # the kernels' instances: N <= 16 * key til
 _PLAIN_LOGITS = 1 << 27
 
 
+@functools.lru_cache(maxsize=None)
 def key_tiles(N: int) -> int:
     """The 16-key tiles of the kernel instance that takes windows of N tokens."""
     return next(t for t in KEY_TILES if N <= 16 * t)
@@ -156,6 +158,42 @@ def fragment_bias(bias, N: int, key_tiles: int) -> torch.Tensor:
     """(nH, N, N) bias -> bf16 in accumulator order (:func:`fragment_terms`),
     -inf in the padded keys: what K1, K5 and K6 read."""
     return fragment_terms(bias, N, key_tiles, float("-inf"), torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _transpose_index(N: int, kt: int, device) -> torch.Tensor:
+    """int32 (16 kt)^2: position p of the transposed bias's layout ->
+    the position of :func:`fragment_bias`'s layout of the bias that holds
+    its value: bias[h, k, q] for (q, k) both below N, else a position that
+    holds the same padding (-inf in a padded key, 0 in a padded query)."""
+    with torch.inference_mode(False):
+        Np = 16 * kt
+        logical = fragment_terms(torch.arange(Np * Np).view(1, Np, Np), Np, kt, 0).flatten()
+        where = torch.empty_like(logical)
+        where[logical] = torch.arange(Np * Np)        # logical (q, k) -> layout position
+        src = torch.arange(Np * Np).view(Np, Np).t().clone()   # (q, k) <- (k, q)
+        src[:, N:] = N                                  # a padded key: (0, N), -inf
+        src[N:, :N] = N * Np                            # a padded query: (N, 0), 0
+        return where[src.flatten()[logical]].to(device, torch.int32)
+
+
+def transposed_terms(terms, N: int) -> torch.Tensor:
+    """:func:`fragment_bias` of the bias transposed, bitwise, from
+    :func:`fragment_bias` of the bias: one gather with a permutation (K5's
+    column form of K1's terms)."""
+    nH, kt = terms.shape[0], terms.shape[1]
+    idx = _transpose_index(N, kt, terms.device)
+    return terms.view(nH, -1).index_select(1, idx).view(terms.shape)
+
+
+def fragment_index(index, table_len: int, key_tiles: int) -> torch.Tensor:
+    """(X, N, N) int64 rows of a (table_len, ...) table -> the same rows in
+    accumulator order (:func:`fragment_terms`), with row ``table_len`` (a
+    row of zeros) in the padded queries of the real keys and ``table_len +
+    1`` (a row of -inf) in the padded keys: gathering a table extended by
+    those two rows with it gives :func:`fragment_bias` of the gathered bias
+    in one step."""
+    return fragment_terms(index - table_len, index.shape[-1], key_tiles, 1) + table_len
 
 
 def window_attention_bwd_plain(qkv2, bias, region_ids, g2, scale: float, num_heads: int,
@@ -295,18 +333,97 @@ def _kernel_shapes(qkv2, bias, region_ids, num_heads: int, N: int):
     return Bn, C, _region_nW(region_ids, Bn, N, dev), key_tiles(N)
 
 
+# K1's blocks, mirrored from csrc/window_attention.cu: 4 warps, two an SM
+# where their registers are not capped, three where they are
+_K1_WALK_MAX = 16          # clips a block walks at most
+_K1_STAGE_LIMIT = 116224   # two staging buffers fit where their bytes stay under half an SM's
+_K1_SMEM_SM = 233472       # shared memory of an SM
+
+
+class K1Grid(NamedTuple):
+    """K1's launch plan (:func:`k1_grid`)."""
+    per: int           # clips of one mask row a block walks
+    min_blocks: int    # blocks an SM the registers are capped for (1: no cap, or 3)
+    blocks: int
+    smem: int          # dynamic shared memory of a block, bytes
+
+
+def _k1_smem(kt: int, tiles: int, stages: int) -> int:
+    """Shared memory of a K1 block: ``stages`` buffers of ``tiles`` staged
+    (16 kt, 40) bf16 tiles, then the region ids."""
+    return _align128(stages * tiles * 16 * kt * _LD * 2) + 16 * kt * 4
+
+
+def _k1_tiles(kt: int) -> int:
+    """Tiles a K1 buffer stages: q, k and v where three blocks' single
+    buffers fit an SM (up to 19 key tiles), else k and v."""
+    return 3 if 3 * _k1_smem(kt, 3, 1) <= _K1_SMEM_SM else 2
+
+
+def _k1_stages(kt: int, per: int) -> int:
+    """K1's staging buffers: two where a block walks more than one clip and
+    two fit (up to 13 key tiles), else one."""
+    return 2 if per > 1 and 2 * _k1_smem(kt, _k1_tiles(kt), 1) <= _K1_STAGE_LIMIT else 1
+
+
+@functools.lru_cache(maxsize=None)
+def k1_grid(Bn: int, num_heads: int, N: int, sms: int, nW: int = 1) -> K1Grid:
+    """K1's plan for Bn windows (nW mask rows) of N tokens on a card of
+    ``sms`` SMs; the C entry point refuses plans that disagree with it.
+
+    A block takes one head and ``per`` clips of one mask row and stages
+    the next window by cp.async while one runs where two buffers fit (up to
+    13 key tiles). q is staged with k and v where three blocks' buffers fit
+    an SM (up to 19 key tiles), else each warp reads its q strip. A call of
+    at least four waves of one-window blocks at three an SM (12 sms (window,
+    head) pairs) takes one window a block with the registers capped for
+    three blocks an SM; a smaller one, where two buffers fit, the most clips
+    a block (a power of two, at most 16) that still give a full wave at two
+    blocks an SM, else one window a block. The choice is the fastest of the
+    variants measured at each call shape of the eval and train paths, or
+    within 3% of it (PERF.md, section 6)."""
+    kt, pairs, clips = key_tiles(N), Bn * num_heads, Bn // nW
+    large = pairs >= 4 * 3 * sms
+    per = 1
+    if not large and _k1_stages(kt, 2) == 2:
+        full = 0.95 * 2 * sms
+        per = max(p for p in (1, 2, 4, 8, _K1_WALK_MAX)
+                  if p == 1 or (p <= clips and num_heads * nW * -(-clips // p) >= full))
+    return K1Grid(per, 3 if large else 1, num_heads * nW * -(-clips // per),
+                  _k1_smem(kt, _k1_tiles(kt), _k1_stages(kt, per)))
+
+
+def _k1_bias_terms(terms, bias, N: int, kt: int):
+    """K1's bias terms: ``terms`` (bf16 in accumulator order, checked) or,
+    when None, the wrapper's layout of ``bias``."""
+    if terms is None:
+        return fragment_bias(bias, N, kt)
+    _build.require(terms, "terms", torch.bfloat16, bias.device,
+                   (bias.shape[0], kt, 2 * kt, 8, 4, 2, 2))
+    return terms
+
+
+def k1_launch(qkv2, terms, region_ids, out, grid: K1Grid, scale: float, num_heads: int, N: int):
+    """One launch of K1 under ``grid`` on checked CUDA tensors (terms laid out)."""
+    Bn, nW = qkv2.shape[0] // N, 1 if region_ids is None else region_ids.shape[0]
+    _build.launch("clover_window_attention", qkv2, terms, region_ids, out, Bn, N, num_heads, nW,
+                  key_tiles(N), grid.per, grid.min_blocks, float(scale),
+                  _build.stream(qkv2.device))
+
+
 def flat2_window_attention(qkv2, bias, region_ids, scale: float, num_heads: int,
-                           N: int):
+                           N: int, terms=None):
     """qkv2 (Bn*N, 3C) -> (Bn*N, C); bias (nH, N, N); region_ids (nW, N)
-    int32 or None (unshifted block)."""
+    int32 or None (unshifted block). ``terms``: the bias already in
+    accumulator order (:func:`fragment_bias`; the model's cached or
+    table-gathered form), None for the wrapper to lay it out."""
     if not qkv2.is_cuda:
         return window_attention_plain(qkv2, bias, region_ids, scale, num_heads, N)
-    Bn, C, nW, key_tiles = _kernel_shapes(qkv2, bias, region_ids, num_heads, N)
-    M, dev = qkv2.shape[0], qkv2.device
-    bias_f = fragment_bias(bias, N, key_tiles)
-    out = torch.empty((M, C), dtype=qkv2.dtype, device=dev)
-    _build.launch("clover_window_attention", qkv2, bias_f, region_ids, out, Bn, N, num_heads,
-                  nW, key_tiles, float(scale), _build.stream(dev))
+    Bn, C, nW, kt = _kernel_shapes(qkv2, bias, region_ids, num_heads, N)
+    terms = _k1_bias_terms(terms, bias, N, kt)
+    out = torch.empty((qkv2.shape[0], C), dtype=qkv2.dtype, device=qkv2.device)
+    k1_launch(qkv2, terms, region_ids, out, k1_grid(Bn, num_heads, N, _build.sms(qkv2.device), nW),
+              scale, num_heads, N)
     flat2_window_attention.launches += 1
     return out
 
@@ -360,16 +477,22 @@ def _bwd_grid(Bn: int, num_heads: int, N: int, sms: int) -> BwdGrid:
                    Bn * num_heads * Np * 8, chunks * num_heads * strips * 16 * Np * 4)
 
 
-def _bwd_launch(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int):
+def _bwd_launch(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int,
+                terms=None):
     """K5's three launches (row pass, key pass, finish) on CUDA tensors ->
     (dqkv2, dbias, stats): stats (Bn, nH, 16 key tiles, 2) fp32 is the row
     pass's (logsumexp, rowsum(dp * P)) per query, (+inf, 0) in the padded
-    rows of each strip, unwritten past the last strip."""
+    rows of each strip, unwritten past the last strip. ``terms``: K1's
+    (checked; the key pass's transposed form gathered from them), or None
+    for both forms laid out here."""
     Bn, C, nW, kt = _kernel_shapes(qkv2, bias, region_ids, num_heads, N)
     M, dev = qkv2.shape[0], qkv2.device
     _build.require(g2, "g2", torch.bfloat16, dev, (M, C))
-    bias_r = fragment_bias(bias, N, kt)
-    bias_c = fragment_bias(bias.transpose(1, 2), N, kt)
+    if terms is None:
+        bias_r, bias_c = fragment_bias(bias, N, kt), fragment_bias(bias.transpose(1, 2), N, kt)
+    else:
+        bias_r = _k1_bias_terms(terms, bias, N, kt)
+        bias_c = transposed_terms(bias_r, N)
     grid = _bwd_grid(Bn, num_heads, N, _build.sms(dev))
     Np, strips = 16 * kt, -(-N // 16)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -384,12 +507,13 @@ def _bwd_launch(qkv2, bias, region_ids, g2, scale: float, num_heads: int, N: int
 
 
 def flat2_window_attention_bwd(qkv2, bias, region_ids, g2, scale: float, num_heads: int,
-                               N: int):
+                               N: int, terms=None):
     """Backward of ``flat2_window_attention`` for the output gradient g2
-    (Bn*N, C): -> (dqkv2 (Bn*N, 3C), dbias (nH, N, N) fp32)."""
+    (Bn*N, C): -> (dqkv2 (Bn*N, 3C), dbias (nH, N, N) fp32). ``terms``:
+    as :func:`flat2_window_attention` takes them."""
     if not qkv2.is_cuda:
         return window_attention_bwd_plain(qkv2, bias, region_ids, g2, scale, num_heads, N)
-    dqkv2, dbias, _ = _bwd_launch(qkv2, bias, region_ids, g2, scale, num_heads, N)
+    dqkv2, dbias, _ = _bwd_launch(qkv2, bias, region_ids, g2, scale, num_heads, N, terms)
     flat2_window_attention_bwd.launches += 1
     return dqkv2, dbias
 
@@ -404,30 +528,37 @@ class WindowAttentionFn(torch.autograd.Function):
     them. Saves qkv2, the bias rounded to qkv2's dtype and the region ids;
     returns dbias in the bias's dtype so that it flows back through
     ``bias_from_table`` into the table. The region ids get no gradient (the
-    JAX package's zero-mask-gradient contract).
+    JAX package's zero-mask-gradient contract). ``terms``: the bias in
+    accumulator order (:func:`fragment_bias`) for K1 and K5, saved for the
+    backward, or None for the wrappers to lay it out; detached values, so
+    no gradient changes.
 
     ``WindowAttentionFn.apply(qkv2, bias, region_ids, scale, num_heads, N,
-    kernels[, long_attn])``"""
+    kernels[, long_attn, terms])``"""
 
     @staticmethod
-    def forward(ctx, qkv2, bias, region_ids, scale, num_heads, N, kernels, long_attn="off"):
+    def forward(ctx, qkv2, bias, region_ids, scale, num_heads, N, kernels, long_attn="off",
+                terms=None):
         bias_c = bias.detach().to(qkv2.dtype)
+        terms = terms if kernels else None
         fwd = {"off": (flat2_window_attention, window_attention_plain),
                "v7": (flat_flash_window_attention, window_attention_flat_flash_plain),
                "v6": (long_window_attention_from_flat, window_attention_flat_flash_plain),
                }[long_attn][0 if kernels else 1]
-        out = fwd(qkv2, bias_c, region_ids, scale, num_heads, N)
-        ctx.save_for_backward(qkv2, bias_c, region_ids)
+        kw = {"terms": terms} if fwd is flat2_window_attention else {}
+        out = fwd(qkv2, bias_c, region_ids, scale, num_heads, N, **kw)
+        ctx.save_for_backward(qkv2, bias_c, region_ids, terms)
         ctx.args = (scale, num_heads, N, kernels, bias.dtype)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qkv2, bias_c, region_ids = ctx.saved_tensors
+        qkv2, bias_c, region_ids, terms = ctx.saved_tensors
         scale, num_heads, N, kernels, bias_dtype = ctx.args
         bwd = flat2_window_attention_bwd if kernels else window_attention_bwd_plain
-        dqkv2, dbias = bwd(qkv2, bias_c, region_ids, g.contiguous(), scale, num_heads, N)
-        return dqkv2, dbias.to(bias_dtype), None, None, None, None, None, None
+        kw = {"terms": terms} if kernels else {}
+        dqkv2, dbias = bwd(qkv2, bias_c, region_ids, g.contiguous(), scale, num_heads, N, **kw)
+        return dqkv2, dbias.to(bias_dtype), None, None, None, None, None, None, None
 
 
 # ----------------------------------------------------- K9: head-major (#7, #8)

@@ -7,8 +7,8 @@ The TPU's 32-frame pretrain recipe rematerialises Swin stages 0-1
 GELU: ``_xla_backward``, or the Pallas kernels ``_backward_onepass`` and
 ``_backward_pallas`` when opted in. The port has them as
 ``ln_mlp_residual_bwd_recompute`` (plain) and the kernels K7
-(``ln_mlp_residual_bwd_onepass``) and K8a + K8b
-(``ln_mlp_residual_bwd_pair``), picked by ``SwinConfig.mlp_bwd``, and remat
+(``ln_mlp_residual_bwd_onepass``) and K8 (``ln_mlp_residual_bwd_pair``,
+K7's passes with the erf GELU), picked by ``SwinConfig.mlp_bwd``, and remat
 as ``models.layers.remat``, which replays the explicit dropout generator in
 the recompute. On the CPU every wrapper runs the plain version; these tests
 feed the same seeded numpy inputs to it and to the JAX function (the Pallas
@@ -25,7 +25,7 @@ kernels in interpret mode), in fp32, with the tolerance each states:
   stash off against the JAX step with the same config and ``_STASH=False``,
   every dropout at 0, and the bridge of the JAX remat tree.
 
-The ``gpu`` tests launch K7, K8a and K8b and skip without a card:
+The ``gpu`` tests launch K7 and K8 and skip without a card:
 ``python -m pytest tests/test_torch_remat.py -m gpu --noconftest``.
 """
 
@@ -141,9 +141,10 @@ def test_onepass_wrapper_matches_pallas_onepass(gelu, with_rs, ragged, jx, monke
 @pytest.mark.parametrize("ragged", [False, True])
 @pytest.mark.parametrize("with_rs", [False, True])
 def test_pair_wrapper_matches_pallas_pair(with_rs, ragged, jx, monkeypatch):
-    """The pair's wrapper (erf) on CPU tensors against _backward_pallas in
-    interpret mode (16-row blocks, 4 hidden chunks): within 2e-4; the pair
-    refuses the tanh GELU, as K8a and K8b do."""
+    """The pair's wrapper (erf) on CPU tensors (K7's passes in plain
+    PyTorch) against _backward_pallas in interpret mode (16-row blocks, 4
+    hidden chunks): within 2e-4; no launch counted; the pair refuses the
+    tanh GELU."""
     mlp = jx.mlp
     monkeypatch.setattr(mlp, "_FORCE_PALLAS", True)
     monkeypatch.setattr(mlp, "_pick_tiles_bwd", lambda rows, C, H, i: (16, H // 4))
@@ -153,10 +154,43 @@ def test_pair_wrapper_matches_pallas_pair(with_rs, ragged, jx, monkeypatch):
                                 jx.jnp.asarray(g))
     assert want is not None
     args, tg = _torch_args(x, params, rs, g)
+    ops.reset_launch_counts()
     _assert_grads(ops.ln_mlp_residual_bwd_pair(*args, 1e-5, "erf", tg), want, 2e-4, 2e-4)
-    for fn in (ops.ln_mlp_residual_bwd_pair, ops.ln_mlp_bwd_dx, ops.ln_mlp_bwd_dw):
-        with pytest.raises(ValueError, match="erf"):
-            fn(*args, 1e-5, "tanh", tg)
+    assert ops.ln_mlp_residual_bwd_pair.launches == 0
+    with pytest.raises(ValueError, match="erf"):
+        ops.ln_mlp_residual_bwd_pair(*args, 1e-5, "tanh", tg)
+
+
+@pytest.mark.parametrize("rows", [196, 294, 300])
+def test_pair_on_p8e_like_rows_matches_pallas_pair(rows, jx, monkeypatch):
+    """The pair's CPU route on ragged row counts like P8E's (196 = one
+    stage-3 clip of 4 x 7 x 7 tokens, 294, 300: none a whole number of the
+    Pallas kernel's 16-row blocks or K7's 128-row tiles), with a row scale,
+    against _backward_pallas in interpret mode: within 2e-4. With K7's
+    hidden cap lowered to one 128-row tile the passes take the rows in 2-3
+    chunks: dx is bitwise the one-chunk route's."""
+    from clover_tpu_torch.ops import mlp_block as mb
+
+    mlp = jx.mlp
+    monkeypatch.setattr(mlp, "_FORCE_PALLAS", True)
+    monkeypatch.setattr(mlp, "_pick_tiles_bwd", lambda rows, C, H, i: (16, H // 4))
+    rng = np.random.default_rng(rows)
+    x, params, _, g = _mlp_case(rows, False, True)
+    x = np.concatenate([x, rng.normal(size=(rows - x.shape[0], x.shape[1])).astype(np.float32)])
+    g = np.concatenate([g, rng.normal(size=(rows - g.shape[0], g.shape[1])).astype(np.float32)])
+    rs = ((rng.random(rows) > 0.1) / 0.9).astype(np.float32)
+    want = mlp._backward_pallas(*map(jx.jnp.asarray, (x, *params)), jx.jnp.asarray(rs), 1e-5,
+                                jx.jnp.asarray(g))
+    args, tg = _torch_args(x, params, rs, g)
+    one = ops.ln_mlp_residual_bwd_pair(*args, 1e-5, "erf", tg)
+    _assert_grads(one, want, 2e-4, 2e-4)
+    H = params[3].shape[0]
+    cap = 4 * mb._K7_TILE * H   # dz and s h of one 128-row tile
+    plan = mb.k7_plan(rows, x.shape[1], H, hidden_bytes=cap)
+    assert plan.chunks == -(-rows // mb._K7_TILE) > 1
+    got = mb.ln_mlp_residual_bwd_passes(*args, 1e-5, "erf", tg, plan)
+    assert torch.equal(got[0], one[0])
+    _assert_grads(got, want, 2e-4, 2e-4)
 
 
 @pytest.mark.parametrize("route,gelu", [("xla", "tanh"), ("xla", "erf"), ("onepass", "tanh"),
@@ -508,14 +542,13 @@ def _check_against_plain(got, x, w, rs, gelu, g):
 @pytest.mark.parametrize("route,gelu", [("onepass", "tanh"), ("onepass", "erf"), ("pair", "erf")])
 @pytest.mark.parametrize("rows,C", [(1000, 128), (777, 256), (333, 512), (97, 1024)])
 def test_recompute_kernels_on_card(cuda, route, gelu, rows, C):
-    """K7 and K8a + K8b at each Swin width, row counts that leave a ragged
+    """K7 and K8 at each Swin width, row counts that leave a ragged
     row block, against the plain version; one launch each counted; two
     launches bitwise equal (no atomics: the slices and partials are summed
     in a fixed order)."""
     x, w, rs, g = _card_case(cuda, rows, C, rows + C)
     fn = ops.ln_mlp_residual_bwd_onepass if route == "onepass" else ops.ln_mlp_residual_bwd_pair
-    counters = ([ops.ln_mlp_residual_bwd_onepass] if route == "onepass"
-                else [ops.ln_mlp_bwd_dx, ops.ln_mlp_bwd_dw])
+    counters = [fn]
     before = [c.launches for c in counters]
     got = fn(x, *w, rs, 1e-5, gelu, g)
     again = fn(x, *w, rs, 1e-5, gelu, g)
@@ -526,6 +559,22 @@ def test_recompute_kernels_on_card(cuda, route, gelu, rows, C):
     no_rs = fn(x, *w, None, 1e-5, gelu, g)
     assert no_rs[7] is None
     _check_against_plain(no_rs, x, w, None, gelu, g)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,C", [(200704, 128), (50176, 256), (12544, 512), (3136, 1024)])
+def test_pair_at_p8e_shapes_on_card(cuda, rows, C):
+    """K8 at the (rows, C) of P8E's four Swin stages (16 clips of 8 frames),
+    with a row scale: one launch each counted, two launches bitwise equal,
+    every output within the limits of test_recompute_kernels_on_card."""
+    x, w, rs, g = _card_case(cuda, rows, C, C)
+    before = ops.ln_mlp_residual_bwd_pair.launches
+    got = ops.ln_mlp_residual_bwd_pair(x, *w, rs, 1e-5, "erf", g)
+    again = ops.ln_mlp_residual_bwd_pair(x, *w, rs, 1e-5, "erf", g)
+    torch.cuda.synchronize()
+    assert ops.ln_mlp_residual_bwd_pair.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _check_against_plain(got, x, w, rs, "erf", g)
 
 
 _UNCACHED = r"""
@@ -581,7 +630,7 @@ def test_stash_off_fn_on_card(cuda, route, gelu):
     route's kernels each launched once."""
     x, w, rs, g = _card_case(cuda, 2000, 256, 5)
     counters = {"xla": [], "onepass": [ops.ln_mlp_residual_bwd_onepass],
-                "pair": [ops.ln_mlp_bwd_dx, ops.ln_mlp_bwd_dw]}[route]
+                "pair": [ops.ln_mlp_residual_bwd_pair]}[route]
     counters = [ops.fused_ln_mlp_residual_train] + counters
     results = []
     for kernels in (True, False):
