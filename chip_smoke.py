@@ -99,7 +99,10 @@ region ids; K1's rows time the public call on the terms the model hands it
 ("ms": in eval on the cached bias's layout, made once; in training on the
 terms gathered from the relative-position table, the gather timed with it
 as a step runs it once per block forward) and with the wrapper's layout
-("layout_ms"), both bitwise equal, with SDPA beside them.
+("layout_ms"), both bitwise equal, with SDPA beside them. K4's rows time
+the public call ("ms") and its launch alone, queued behind a sleep on the
+card so that the host's time does not show ("alone_ms"), beside
+F.layer_norm ("library_ms").
 
 Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 """
@@ -466,6 +469,7 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
 
     from clover_tpu_torch import ops
     from clover_tpu_torch.models.swin3d import _shift_region_ids
+    from clover_tpu_torch.ops.heads_sweep import queued_ms
 
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -539,7 +543,8 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
         lib = cuda_ms(lambda: F.layer_norm(x, (C,), wb, bb, 1e-5), 10)
         record("K4", "fused_layer_norm", f"rows={rows} C={C}", k(), p(),
                cuda_ms(k, 10), cuda_ms(p, 10), count,
-               work=bound_ms(fp32_ops=8 * rows * C, nbytes=4 * rows * C + 8 * C), lib=lib)
+               work=bound_ms(fp32_ops=8 * rows * C, nbytes=4 * rows * C + 8 * C), lib=lib,
+               alone=queued_ms(k, 10))
     return results
 
 
@@ -601,17 +606,18 @@ def k2_chunks_check(k, planned, rows, C):
 
 def recorder(results, per):
     """record(key, name, label, out, ref, t_k, t_p, count, part, work, lib, err,
-    layout): check one kernel output against its plain version (``err``
-    given: an error the caller has checked against its own limits), print
-    it, and add the times (count calls per ``per``) to results[key]: kernel
-    and plain ms, the bound (``work``: (operations ms, bytes ms) of one
-    call), the library call's ms (``lib``; None where no PyTorch call
-    computes the function) and K1's public call with the wrapper's layout
-    (``layout``)."""
+    layout, alone): check one kernel output against its plain version
+    (``err`` given: an error the caller has checked against its own limits),
+    print it, and add the times (count calls per ``per``) to results[key]:
+    kernel and plain ms, the bound (``work``: (operations ms, bytes ms) of
+    one call), the library call's ms (``lib``; None where no PyTorch call
+    computes the function), K1's public call with the wrapper's layout
+    (``layout``) and K4's launch alone, queued behind a sleep on the card
+    so that the host's time does not show (``alone``)."""
     import torch
 
     def record(key, name, label, out, ref, t_k, t_p, count, part=None, work=None, lib=None,
-               err=None, layout=None):
+               err=None, layout=None, alone=None):
         checked = err is not None   # the caller held the output to its own limits
         if not checked:
             err = (out.float() - ref.float()).abs().max().item()
@@ -636,6 +642,8 @@ def recorder(results, per):
             extra += f" library={lib:.4f} ms"
         if layout is not None:
             extra += f" with the wrapper's layout={layout:.4f} ms"
+        if alone is not None:
+            extra += f" launch alone={alone:.4f} ms"
         print(f"{key} {name} {label}: max_abs_err={err:.3e} max|plain|={scale:.3e} "
               f"rel={err / max(scale, 1e-30):.2e} tol={tol:.3e}{control} "
               f"kernel={t_k:.4f} ms plain={t_p:.4f} ms{extra} x{count}/{per} "
@@ -654,6 +662,8 @@ def recorder(results, per):
             r["library_ms"] = (r["library_ms"] or 0.0) + lib * count
         if layout is not None:
             r["layout_ms"] = r.get("layout_ms", 0.0) + layout * count
+        if alone is not None:
+            r["alone_ms"] = r.get("alone_ms", 0.0) + alone * count
         check(ok, f"{key} {label}: kernel disagrees with its plain version")
 
     return record
@@ -1635,7 +1645,7 @@ def main(argv=None) -> int:
               "bound_ms": res[k]["bound_ms"],
               "bound_by": "operations" if res[k]["ops_ms"] >= res[k]["bytes_ms"] else "bytes",
               "library_ms": res[k]["library_ms"], "path": path,
-              **({"layout_ms": res[k]["layout_ms"]} if "layout_ms" in res[k] else {})}
+              **{extra: res[k][extra] for extra in ("layout_ms", "alone_ms") if extra in res[k]}}
              for k, res, n, path, src in rows]
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

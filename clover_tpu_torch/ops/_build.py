@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # argument types of each C entry point; pointers and the stream are c_void_p
 _SIGNATURES = {
-    "clover_layer_norm": (_P, _P, _P, _P, _I, _I, _F, _P),
+    "clover_layer_norm": (_P,) * 4 + (_I,) * 6 + (_F, _P),
     "clover_ln_mlp_residual": (_P,) * 13 + (_I,) * 4 + (_F, _I, _P),
     "clover_mlp_postln": (_P,) * 11 + (_I,) * 4 + (_F, _P),
     "clover_window_attention": (_P,) * 4 + (_I,) * 7 + (_F, _P),
@@ -132,6 +132,20 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def entry(name: str):
+    """C entry ``name`` of the loaded library (built first if its sources
+    changed), for a wrapper that calls it with the pointers of tensors it
+    holds through the call and hands the return code to :func:`check`."""
+    return getattr(library(), name)
+
+
+def check(name: str, rc: int) -> None:
+    """Raise if C entry ``name`` returned a CUDA error."""
+    if rc != 0:
+        msg = library().clover_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
 def launch(name: str, *args) -> None:
     """Call C entry ``name``; raise if its launch reported a CUDA error.
 
@@ -139,11 +153,7 @@ def launch(name: str, *args) -> None:
     is alive until its kernel is queued: a temporary freed before that
     could be handed by the caching allocator to a buffer the kernel
     writes, and the kernel would overwrite its own input."""
-    lib = library()
-    rc = getattr(lib, name)(*(a.data_ptr() if hasattr(a, "data_ptr") else a for a in args))
-    if rc != 0:
-        msg = lib.clover_error_string(rc).decode()
-        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+    check(name, entry(name)(*(a.data_ptr() if hasattr(a, "data_ptr") else a for a in args)))
 
 
 def require(t, name: str, dtype, device, shape=None) -> None:
@@ -160,9 +170,13 @@ def require(t, name: str, dtype, device, shape=None) -> None:
 
 
 def stream(device) -> int:
+    """The handle of PyTorch's current stream on ``device``, as
+    ``torch.cuda.current_stream(device).cuda_stream`` gives it, without
+    making a Stream object (a few microseconds of host time a call)."""
     import torch
 
-    return torch.cuda.current_stream(device).cuda_stream
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 @functools.lru_cache(maxsize=None)
