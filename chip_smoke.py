@@ -80,6 +80,27 @@ Phases, in order; any failure raises and exits non-zero:
    stage rematerialised, the stash off; K7's passes with the erf GELU): K8
    checked as K7, then 3 steps on each path as in 8c (and, with --profile,
    traced);
+8f. the device preprocess of RGB frames alone at the RGB paths' batch
+   shapes (ms per batch beside its bytes bound); R8, the 8-frame retrieval
+   eval from uint8 RGB frames (B=32 clips of 8 x 224^2, the configs'
+   test_canonical_size, so eval_preprocess only normalizes; the raw-clip
+   'conv' embed, fold_normalize off) through run_retrieval_eval's RGB route
+   with K1-K4: launches, finite R@K, cosine per row against its plain path
+   and against the host-s2d eval8 path on the same frames and weights,
+   clips/s with the preprocess, peak memory; then one batch of canonical
+   256 frames through the centre crop and one through
+   three_crop_preprocess (each clip's 3 crops mean-pooled), each against
+   its plain path;
+8g. F12R, the 12-frame finetune step from uint8 frames (B=16 clips at
+   canonical 256, seeded random-resized crop boxes and flips, the model
+   batch made on the card by to_model_batch, tools/train.py's route): 5
+   steps with the kernels (K1, K5, K2S) and with the plain versions,
+   checked as phase 8, clips/s over steps 3-5;
+8h. E8F, the 8-frame eval under attention_impl='fused_block' (K6 at N=196
+   in every block, unshifted and shifted, on the window-resident layout): K6 (and
+   K4, whose norm1 calls K6 takes over) against its plain version at the
+   four stage shapes, then the path against its plain path as phase 5c
+   (24 K6 launches a forward, cosine per row, clips/s, peak memory);
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -207,6 +228,21 @@ SPATIAL_PATHS = {
                 COS32_MIN),
 }
 PRETRAIN_LOSSES = ("mlm_loss", "nce_loss", "rank_t_tm_loss", "v_nce_loss", "rank_v_vm_loss")
+# the RGB-frame paths: R8, the 8-frame retrieval eval from uint8 frames at the
+# configs' test_canonical_size of 224 (eval_preprocess's normalize-only
+# route) with the raw-clip 'conv' embed and fold_normalize off, eval8's
+# kernels and launches; then one batch of canonical 256 frames through the
+# centre crop and one through three_crop_preprocess (3 crops a clip, their
+# features mean-pooled). F12R, the 12-frame finetune step from uint8 frames at
+# canonical 256: seeded random-resized crop boxes and flips through
+# to_model_batch (tools/train.py's route), the 12-frame train launches,
+# timed over steps 3-5 as phase 8
+R8_BATCHES, CANON = 2, 256
+R8_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
+F12R_STEPS = TRAIN_STEPS
+# E8F: the 8-frame eval under attention_impl='fused_block', K6 (N=196, LN1
+# inside it) in every block; a SPATIAL_PATHS spec
+E8F = (dict(attention_impl="fused_block"), B, T, S, 2, {"K6": 24, "K4": 18}, COS32_MIN)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -250,8 +286,9 @@ def cuda_ms(fn, reps: int) -> float:
 def path_shapes(cfg, frames=T):
     """Per-forward kernel calls of the eval path at ``frames`` frames:
     {kernel: [(args, count)]}. A block whose window has N >= 384 tokens runs
-    LN1 + attention + proj as K6 (SwinConfig.fused_attn 'auto'), else LN1
-    as K4 and the attention as K1."""
+    LN1 + attention + proj as K6 (SwinConfig.fused_attn 'auto'), and so does
+    every block under attention_impl='fused_block' (no stage here pads);
+    else LN1 as K4 and the attention as K1."""
     from clover_tpu_torch.models.swin3d import (_shift_region_ids, effective_window,
                                                 fused_attn_enabled)
 
@@ -267,7 +304,8 @@ def path_shapes(cfg, frames=T):
         N = int(np.prod(window))
         ids = _shift_region_ids(dims, window, sh)
         n_shifted = depth // 2 if ids is not None else 0
-        fused = fused_attn_enabled(sw.fused_attn, N)
+        fused = fused_attn_enabled(sw.fused_attn, N) or sw.attention_impl == "fused_block"
+        check(not any(d % w for d, w in zip(dims, window)), f"stage {i} pads")
         attn = "K6" if fused else "K1"
         calls[attn].append(((rows // N, N, nH, None), depth - n_shifted))
         if n_shifted:
@@ -461,9 +499,10 @@ def spatial_kernel_phase(sw, dev, seed=SEED + 11):
     return out
 
 
-def kernel_phase(cfg, dev, frames=T, seed=SEED):
-    """Each kernel against its plain version at the path's shapes, with its
-    bound and (K1, K4) one library call's time at the same shapes."""
+def kernel_phase(cfg, dev, frames=T, seed=SEED, keys=("K1", "K2", "K3", "K4", "K6")):
+    """Each kernel of ``keys`` against its plain version at the path's
+    shapes, with its bound and (K1, K4) one library call's time at the same
+    shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -477,8 +516,8 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     results = {}
-    calls = path_shapes(cfg, frames)
-    if frames == T:
+    calls = {k: v if k in keys else [] for k, v in path_shapes(cfg, frames).items()}
+    if frames == T and calls["K1"]:
         # the region mask at nH=32 too (stage 3 has no shifted block at 8 frames)
         ids_extra = _shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))[:1]
         calls["K1"].append(((B, 196, 32, ids_extra), 0))
@@ -1288,9 +1327,11 @@ def pretrain_phase(dev, card, profile: bool, cfg=None, frames=PT, launches=PRETR
     return counts
 
 
-def make_batches(cfg, frames_per_clip=T, n_batches=N_BATCHES, seed=SEED, clips=B, size=S):
-    """Seeded host-s2d uint8 clips (clips, 1, T/2, size/4, size/4, 96) and
-    captions of varied length, as the retrieval loader gives them."""
+def make_batches(cfg, frames_per_clip=T, n_batches=N_BATCHES, seed=SEED, clips=B, size=S,
+                 rgb=False):
+    """Seeded host-s2d uint8 clips (clips, 1, T/2, size/4, size/4, 96) (with
+    ``rgb``, the same frames as (clips, 1, T, size, size, 3)) and captions
+    of varied length, as the retrieval loader gives them."""
     from clover_tpu_torch.ops.preprocess import space_to_depth_host
 
     rng = np.random.default_rng(seed)
@@ -1304,15 +1345,17 @@ def make_batches(cfg, frames_per_clip=T, n_batches=N_BATCHES, seed=SEED, clips=B
         mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
         index = np.arange(i * clips, (i + 1) * clips)
         batches.append({
-            "imgs": space_to_depth_host(frames, cfg.swin.patch_size)[:, None],
+            "imgs": frames[:, None] if rgb else space_to_depth_host(frames,
+                                                                   cfg.swin.patch_size)[:, None],
             "token_ids": tok * mask, "input_mask": mask, "index": index, "video_index": index,
         })
     return batches
 
 
-def drive_main_path(model, cfg, batches):
+def drive_main_path(model, cfg, batches, **loop):
     """The port's main path, as a user runs it: the eval step through the
-    retrieval loop, bias cache built at the first batch. -> R@K metrics."""
+    retrieval loop (``loop``: its out_size and dtype for RGB batches), bias
+    cache built at the first batch. -> R@K metrics."""
     import torch
 
     from clover_tpu_torch.engine import make_embed_eval_step, run_retrieval_eval
@@ -1322,7 +1365,7 @@ def drive_main_path(model, cfg, batches):
     dataset = types.SimpleNamespace(text_video_ids=[[i] for i in range(n)])
     metrics = run_retrieval_eval(
         make_embed_eval_step(model), model, dataset, iter(batches),
-        bias_cache=lambda m, dims: swin_bias_cache(m.backbone, cfg.swin, dims))
+        bias_cache=lambda m, dims: swin_bias_cache(m.backbone, cfg.swin, dims), **loop)
     torch.cuda.synchronize()
     return metrics
 
@@ -1398,10 +1441,11 @@ def eval32_phase(model, plain, cfg, dev, card, profile: bool):
     return counts
 
 
-def spatial_path_phase(path, weights, dev, card, profile: bool):
-    """One phase-5c path (SPATIAL_PATHS): the retrieval eval of Swin-B with
-    the path's SwinConfig fields + BERT-base on ``weights`` (the eval
-    model's state dict: the parameter tree does not depend on the layout),
+def spatial_path_phase(path, weights, dev, card, profile: bool, spec=None):
+    """One phase-5c path (SPATIAL_PATHS, or ``spec`` in its form): the
+    retrieval eval of Swin-B with the path's SwinConfig fields + BERT-base
+    on ``weights`` (the eval model's state dict: the parameter tree does not
+    depend on the layout),
     with the kernels and with the plain versions on the same batches;
     launches per forward, finite embeddings and R@K, cosine per row,
     clips/s, peak memory; with ``profile``, the kernel path's forwards
@@ -1411,7 +1455,7 @@ def spatial_path_phase(path, weights, dev, card, profile: bool):
     from clover_tpu_torch import ops
     from clover_tpu_torch.models import BertConfig, CloverFinetune, FinetuneConfig, SwinConfig
 
-    fields, clips, frames, size, n_batches, own, cos_min = SPATIAL_PATHS[path]
+    fields, clips, frames, size, n_batches, own, cos_min = spec or SPATIAL_PATHS[path]
     cfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True, **fields),
                          text_bert=BertConfig())
     model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True).eval()
@@ -1456,6 +1500,212 @@ def spatial_path_phase(path, weights, dev, card, profile: bool):
     return counts
 
 
+def timed_rgb_embeddings(model, cfg, batches, dev, views=1):
+    """RGB batches (uint8 frames already on the card) through the device
+    preprocess and the eval step, timed with a host clock around work that
+    ends in a synchronize, after one untimed forward: ``eval_preprocess``
+    to 224 (``views`` 3: ``three_crop_preprocess``, each clip's 3 crops
+    mean-pooled by the model). -> (v, t, clips/s)."""
+    import torch
+
+    from clover_tpu_torch.engine import make_embed_eval_step
+    from clover_tpu_torch.models import swin_bias_cache
+    from clover_tpu_torch.models.swin3d import embed_dims
+    from clover_tpu_torch.ops.preprocess import eval_preprocess, three_crop_preprocess
+
+    step = make_embed_eval_step(model)
+    cache = swin_bias_cache(model.backbone, cfg.swin,
+                            embed_dims(cfg.swin, (batches[0]["imgs"].shape[2], S, S)))
+    on_dev = [tuple(torch.as_tensor(b[k]).to(dev) for k in ("imgs", "token_ids", "input_mask"))
+              for b in batches]
+
+    def forward(frames, tok, mask):
+        clips = frames.flatten(0, 1)
+        if views == 3:
+            imgs = three_crop_preprocess(clips, S, torch.bfloat16).unflatten(0, (-1, 3))
+        else:
+            imgs = eval_preprocess(clips, S, torch.bfloat16).unflatten(0, frames.shape[:2])
+        return step(imgs, tok, mask, cache)
+
+    forward(*on_dev[0])   # an untimed warm-up forward
+    torch.cuda.synchronize()
+    vs, ts = [], []
+    t0 = time.perf_counter()
+    for frames, tok, mask in on_dev:
+        v, t = forward(frames, tok, mask)
+        vs.append(v)
+        ts.append(t)
+    torch.cuda.synchronize()
+    clips_per_s = sum(a[0].shape[0] for a in on_dev) / (time.perf_counter() - t0)
+    return torch.cat(vs).float(), torch.cat(ts).float(), clips_per_s
+
+
+def min_cosines(a, b):
+    """(video, text) min per-row cosine of two paths' embeddings."""
+    import torch.nn.functional as F
+
+    return tuple(F.cosine_similarity(x, y, dim=-1).min().item() for x, y in zip(a, b))
+
+
+def preprocess_phase(dev, card):
+    """The device preprocess alone at the RGB paths' batch shapes (CUDA
+    events): R8's normalize-only eval batch, the centre crop and the three
+    crops of a canonical-256 batch, F12R's random-resized crops with flips;
+    beside each, its bytes over the card's rate (uint8 in, bf16 out). ->
+    {route: ms per batch}."""
+    import torch
+
+    from clover_tpu_torch.ops.preprocess import (eval_preprocess, preprocess_clips,
+                                                 random_resized_crop_params,
+                                                 three_crop_preprocess)
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+
+    def frames(*shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev, dtype=torch.uint8)
+
+    f224, f256, train = frames(B, T, S, S, 3), frames(B, T, CANON, CANON, 3), frames(
+        TB, TT, CANON, CANON, 3)
+    rng = np.random.default_rng(SEED + 17)
+    boxes = np.stack([random_resized_crop_params(rng, CANON) for _ in range(TB)])
+    flips = rng.random(TB) < 0.5
+    out = {}
+    for name, fn, x, n_out in (
+            ("R8 eval_preprocess (normalize only)", lambda: eval_preprocess(f224, S), f224, B),
+            ("eval_preprocess (centre crop 256 -> 224)", lambda: eval_preprocess(f256, S), f256, B),
+            ("three_crop_preprocess (256 -> 3 x 224)", lambda: three_crop_preprocess(f256, S),
+             f256, 3 * B),
+            ("F12R preprocess_clips (random crops, flips)",
+             lambda: preprocess_clips(train, boxes, flips, S), train, TB)):
+        y = fn()
+        check(y.dtype == torch.bfloat16 and y.shape == (n_out, x.shape[1], S, S, 3)
+              and bool(torch.isfinite(y).all()), f"{name}: output {tuple(y.shape)}")
+        out[name] = cuda_ms(fn, 5)
+        bound = (x.numel() + 2 * y.numel()) / PEAK_BYTES * 1e3
+        print(f"preprocess {name} {tuple(x.shape)} -> {tuple(y.shape)}: {out[name]:.4f} ms per "
+              f"batch (bytes bound {bound:.4f} ms) on {card}", flush=True)
+    return out
+
+
+def rgb_eval_phase(weights, dev, card):
+    """R8: the 8-frame retrieval eval from uint8 RGB frames through
+    run_retrieval_eval's RGB route, with the kernels and with the plain
+    versions on ``weights``; launches per forward, finite R@K, cosine per
+    row against the plain path and against the host-s2d eval8 path
+    (fold_normalize) on the same frames and weights, clips/s with the
+    preprocess, peak memory; then one canonical-256 batch through the centre
+    crop and one through the three crops, each against its plain path. ->
+    the launch counts of R8's run."""
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.models import BertConfig, CloverFinetune, FinetuneConfig, SwinConfig
+
+    cfg = FinetuneConfig(swin=SwinConfig.base(embed_impl="conv"), text_bert=BertConfig())
+    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True).eval()
+    model.load_state_dict(weights)
+    plain = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=False).eval()
+    plain.load_state_dict(weights)
+    batches = make_batches(cfg, T, R8_BATCHES, SEED + 14, B, S, rgb=True)
+    check(batches[0]["imgs"].shape == (B, 1, T, S, S, 3), "R8 batch shape")
+
+    ops.reset_launch_counts()
+    metrics = drive_main_path(model, cfg, batches, dtype=torch.bfloat16)
+    counts = launch_counts()
+    check_launches("R8", counts, R8_LAUNCHES, R8_BATCHES, "forward")
+    torch.cuda.reset_peak_memory_stats(dev)
+    v, t, cps = timed_rgb_embeddings(model, cfg, batches, dev)
+    k_peak = peak_memory(dev)
+    check(v.shape == (B * R8_BATCHES, cfg.vts_embed_dim) and t.shape == v.shape,
+          f"R8 embedding shapes {tuple(v.shape)}, {tuple(t.shape)}")
+    check(bool(torch.isfinite(v).all() and torch.isfinite(t).all()), "R8: non-finite embedding")
+    check(set(metrics) >= {"Recall@1", "Recall@5", "Recall@10", "MR"}, f"metrics {metrics}")
+    print(f"R8 kernel path R@K: {metrics}", flush=True)
+    ops.reset_launch_counts()
+    pv, pt, p_cps = timed_rgb_embeddings(plain, cfg, batches, dev)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain R8 path launched a kernel")
+
+    s2d_cfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True), text_bert=BertConfig())
+    s2d = CloverFinetune(s2d_cfg, dtype=torch.bfloat16, kernels=True).eval()
+    s2d.load_state_dict(weights)
+    s2d_batches = make_batches(s2d_cfg, T, R8_BATCHES, SEED + 14, B, S)
+    sv, st, _ = timed_embeddings(s2d, s2d_cfg, s2d_batches, dev)
+    del s2d
+    for what, other in (("plain R8 path", (pv, pt)), ("host-s2d eval8 path", (sv, st))):
+        cos_v, cos_t = min_cosines((v, t), other)
+        print(f"R8 kernel path vs the {what}: min cosine video {cos_v:.6f} text {cos_t:.6f} "
+              f"(bound {COS_MIN})", flush=True)
+        check(cos_v >= COS_MIN and cos_t >= COS_MIN, f"R8 disagrees with the {what}")
+    print(f"R8 clips/s (B={B}, {T}x{S}^2 uint8 frames, L={L}, {R8_BATCHES} batches, preprocess "
+          f"+ forward): kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels {k_peak} on "
+          f"{card}", flush=True)
+
+    big = make_batches(cfg, T, 1, SEED + 15, B, CANON, rgb=True)
+    ops.reset_launch_counts()
+    drive_main_path(model, cfg, big, dtype=torch.bfloat16)
+    check_launches(f"R8 centre crop {CANON} -> {S}", launch_counts(), R8_LAUNCHES, 1, "forward")
+    for views in (1, 3):
+        route = "centre crop" if views == 1 else "three crops"
+        ops.reset_launch_counts()
+        kv, kt, k_cps = timed_rgb_embeddings(model, cfg, big, dev, views)
+        # the warm-up forward and the timed one
+        check_launches(f"R8 {route}", launch_counts(), R8_LAUNCHES, 2, "forward")
+        pv3, pt3, _ = timed_rgb_embeddings(plain, cfg, big, dev, views)
+        check(kv.shape == (B, cfg.vts_embed_dim) and bool(torch.isfinite(kv).all()
+                                                          and torch.isfinite(kt).all()),
+              f"R8 {route}: embeddings {tuple(kv.shape)}")
+        cos_v, cos_t = min_cosines((kv, kt), (pv3, pt3))
+        print(f"R8 {route} ({B} clips of {T}x{CANON}^2, {views * B} views a forward): kernel vs "
+              f"plain min cosine video {cos_v:.6f} text {cos_t:.6f} (bound {COS_MIN}); clips/s "
+              f"{k_cps:.2f} on {card}", flush=True)
+        check(cos_v >= COS_MIN and cos_t >= COS_MIN, f"R8 {route}: kernel path disagrees")
+    del model, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rgb_train_phase(dev, card, profile: bool):
+    """F12R: the 12-frame finetune step from uint8 frames (canonical 256,
+    seeded random-resized crop boxes and flips, made into the model batch on
+    the card by to_model_batch; the raw-clip 'conv' embed) with the kernels
+    and with the plain versions from the seeded weights, as
+    compare_train_paths checks a train path. -> the kernel path's counts."""
+    import torch
+
+    from clover_tpu_torch.engine import to_model_batch
+    from clover_tpu_torch.models import (BertConfig, CloverFinetune, FinetuneConfig, SwinConfig,
+                                         init_params)
+    from clover_tpu_torch.ops.preprocess import random_resized_crop_params
+
+    cfg = FinetuneConfig(swin=SwinConfig.base(embed_impl="conv"), text_bert=BertConfig())
+    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True).train()
+    init_params(model, torch.Generator().manual_seed(SEED))
+    plain = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=False).train()
+    plain.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(SEED + 16)
+    batches = []
+    for _ in range(F12R_STEPS):
+        lengths = rng.integers(8, L + 1, size=TB)
+        tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(TB, L))
+        tok[:, 0] = 101                                   # [CLS]
+        mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+        host = {"imgs": rng.integers(0, 256, (TB, 1, TT, CANON, CANON, 3), dtype=np.uint8),
+                "crop_boxes": np.stack([random_resized_crop_params(rng, CANON)
+                                        for _ in range(TB)]),
+                "flip": rng.random(TB) < 0.5, "token_ids": tok * mask, "input_mask": mask}
+        batch = to_model_batch(host, S, torch.bfloat16, dev)
+        check(set(batch) == {"imgs", "token_ids", "input_mask"}
+              and batch["imgs"].shape == (TB, 1, TT, S, S, 3), "F12R model batch")
+        batches.append(batch)
+    counts = compare_train_paths(model, plain, batches, dev, card, profile,
+                                 f"train from RGB frames ({TT} frames)", TRAIN_LAUNCHES[TT],
+                                 f"B={TB}, {TT}x{CANON}^2 uint8 -> {S}^2, L={L}", TB,
+                                 make_train_step)
+    del model, plain, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1466,8 +1716,8 @@ def main(argv=None) -> int:
                     help="trace the kernel path's 8- and 32-frame eval forwards, the "
                          "forwards of each phase-5c path (E8H, E8S, E8P, E32L) and each "
                          "path's 12- and 32-frame finetune steps and pretrain steps (P32 and "
-                         "P8E too) with torch.profiler and print the device time by kernel "
-                         "family")
+                         "P8E too), F12R's steps and E8F's forwards with torch.profiler and "
+                         "print the device time by kernel family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1588,6 +1838,21 @@ def main(argv=None) -> int:
     pre_erf_counts = pretrain_phase(dev, card, profile, ecfg, PT, PRETRAIN_ERF_LAUNCHES,
                                     PRETRAIN_ERF_STEPS, f"pretrain ({PT} frames, erf, remat, K8)")
 
+    # the RGB-frame paths and 'fused_block', on the eval model's seeded weights
+    print(card_line(), flush=True)
+    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    weights = model.state_dict()
+    del model
+    preprocess_phase(dev, card)
+    r8_counts = rgb_eval_phase(weights, dev, card)
+    f12r_counts = rgb_train_phase(dev, card, profile)
+    fcfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True, **E8F[0]),
+                          text_bert=BertConfig())
+    e8f = kernel_phase(fcfg, dev, T, SEED + 13, keys=("K6", "K4"))
+    e8f_counts = spatial_path_phase("E8F", weights, dev, card, profile, E8F)
+    del weights
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -1638,6 +1903,15 @@ def main(argv=None) -> int:
     rows += [(k, pre_erf, pre_erf_counts,
               f"pretrain-erf-pair, ms per step, launches over {PRETRAIN_ERF_STEPS} steps", sources)
              for k in ("K8", "K1", "K5", "K2T")]
+    # R8 and F12R run the eval8 and 12-frame train kernels at their shapes
+    # (timed in phases 3 and 6); E8F's K6 and K4 at its own
+    rows += [(k, results, r8_counts, f"R8 (RGB frames), ms per forward, launches over "
+              f"{R8_BATCHES} forwards", sources) for k in ("K1", "K2", "K3", "K4")]
+    rows += [(k, train, f12r_counts, f"F12R (RGB frames), ms per step, launches over "
+              f"{F12R_STEPS} steps", sources) for k in ("K1", "K5", "K2S")]
+    rows += [(k, e8f if k in ("K6", "K4") else results, e8f_counts,
+              f"E8F (fused_block), ms per forward, launches over {E8F[4]} forwards", sources)
+             for k in ("K6", "K2", "K3", "K4")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],

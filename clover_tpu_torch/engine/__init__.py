@@ -1,5 +1,12 @@
 from clover_tpu_torch.engine.eval_loop import run_retrieval_eval  # noqa: F401
-from clover_tpu_torch.engine.optim import make_optimizer, weight_decay_mask  # noqa: F401
+from clover_tpu_torch.engine.model_batch import to_model_batch  # noqa: F401
+from clover_tpu_torch.engine.optim import (  # noqa: F401
+    freeze_by_prefix,
+    freeze_mask_from_cfg,
+    make_optimizer,
+    step_schedule,
+    weight_decay_mask,
+)
 from clover_tpu_torch.engine.steps import (  # noqa: F401
     ema_momentum_schedule,
     make_embed_eval_step,

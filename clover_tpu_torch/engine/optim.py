@@ -9,12 +9,21 @@ evaluated before each update as optax does (the first update uses
 adds eps outside the square root, as optax's ``adamw`` does; gradient
 clipping happens in the train step (``engine/steps.py``), as in the JAX
 package's ``_finalize``.
+
+Freezing (the reference's ``freeze_stage`` / ``freeze_except``) is decided
+on the same '/'-joined JAX leaf paths (``freeze_by_prefix``,
+``freeze_mask_from_cfg``), so one config string freezes the same tensors in
+both packages. ``make_optimizer(freeze_mask=...)`` is optax's
+``multi_transform`` with ``set_to_zero`` on the frozen leaves: they stay out
+of AdamW's groups (no update, no weight decay, no moments) but keep
+``requires_grad``, so the step's global gradient norm and its clip still
+count their gradients, as the JAX step's do.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -80,21 +89,68 @@ def linear_annealing_schedule(base_lr: float, total_steps: int, warmup_steps: in
                  warmup_steps)
 
 
+def step_schedule(base_lr: float,
+                  boundaries_and_scales: Union[Mapping[int, float], Sequence[Tuple[int, float]]]
+                  ) -> Schedule:
+    """mmcv's StepLrUpdater as optax's ``piecewise_constant_schedule``: each
+    (boundary, scale), in boundary order, multiplies the lr from count >=
+    boundary on; the scales compound."""
+    steps = sorted(dict(boundaries_and_scales).items())
+
+    def schedule(count: int) -> float:
+        lr = base_lr
+        for boundary, scale in steps:
+            if count >= boundary:
+                lr *= scale
+        return lr
+
+    return schedule
+
+
 SCHEDULES = {"cosine": cosine_warmup_schedule, "linear": linear_annealing_schedule}
+
+
+def _joined_paths(model: nn.Module) -> Dict[str, str]:
+    """{parameter name: its '/'-joined leaf path in the JAX tree}."""
+    return {name: "/".join(path) for name, path in jax_leaf_paths(model).items()}
+
+
+def freeze_by_prefix(model: nn.Module, prefixes: Tuple[str, ...]) -> Dict[str, bool]:
+    """{parameter name: False (frozen) where its JAX leaf path starts with one
+    of the '/'-joined ``prefixes``, e.g. ('text_backbone',
+    'backbone/patch_embed')}."""
+    return {name: not any(path.startswith(p) for p in prefixes)
+            for name, path in _joined_paths(model).items()}
+
+
+def freeze_mask_from_cfg(model: nn.Module, freeze_stage,
+                         freeze_except=()) -> Dict[str, bool]:
+    """{parameter name: True where trainable} from the reference's freeze
+    config keys: a ``freeze_stage`` entry freezes every leaf whose JAX path
+    contains it, a ``freeze_except`` entry keeps trainable every leaf whose
+    path contains it and wins; dots in the entries become '/' (so
+    'backbone.patch_embed.' and 'backbone/patch_embed' are one key)."""
+    stage = tuple(s.replace(".", "/").strip("/") for s in (freeze_stage or ()))
+    exempt = tuple(s.replace(".", "/").strip("/") for s in (freeze_except or ()))
+    return {name: any(e in path for e in exempt) or not any(s in path for s in stage)
+            for name, path in _joined_paths(model).items()}
 
 
 def make_optimizer(model: nn.Module, base_lr: float, total_steps: int, warmup_steps: int = 0,
                    weight_decay: float = 0.01, betas: Tuple[float, float] = (0.9, 0.98),
                    eps: float = 1e-8, warmup_start_ratio: float = 0.001,
-                   min_lr_ratio: float = 0.0,
+                   min_lr_ratio: float = 0.0, freeze_mask: Optional[Dict[str, bool]] = None,
                    policy: str = "cosine") -> Tuple[torch.optim.AdamW, Schedule]:
     """-> (AdamW over the model's parameters in a decay and a no-decay group,
     lr schedule). The train state sets each group's lr to schedule(count)
-    before every update."""
+    before every update. ``freeze_mask`` ({parameter name: True where
+    trainable}, as :func:`freeze_mask_from_cfg` gives it) leaves the frozen
+    parameters out of both groups."""
     schedule = SCHEDULES[policy](base_lr, total_steps, warmup_steps, warmup_start_ratio,
                                  min_lr_ratio)
     mask = weight_decay_mask(model)
-    named = list(model.named_parameters())
+    named = [(n, p) for n, p in model.named_parameters()
+             if freeze_mask is None or freeze_mask[n]]
     groups = [{"params": [p for n, p in named if mask[n]], "weight_decay": weight_decay},
               {"params": [p for n, p in named if not mask[n]], "weight_decay": 0.0}]
     return torch.optim.AdamW(groups, lr=schedule(0), betas=betas, eps=eps), schedule

@@ -48,7 +48,8 @@ def _finalize(state: TrainState, losses: Dict[str, torch.Tensor], ema_momentum,
     if callable(ema_momentum):
         ema_momentum = ema_momentum(state.step)
     grads = [p.grad for p in state.model.parameters()]
-    gnorm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norms = torch._foreach_norm(grads, 2, dtype=torch.float64)
+    gnorm = torch.linalg.vector_norm(torch.stack(norms)).float()
     if grad_clip_norm is not None:
         # optax.clip_by_global_norm's select(norm < max, g, g / norm * max)
         keep = gnorm < grad_clip_norm

@@ -28,11 +28,14 @@ from clover_tpu_torch.models.swin3d import SwinConfig, SwinTransformer3D
 @dataclasses.dataclass(frozen=True)
 class FinetuneConfig:
     """The retrieval fields of ``clover_tpu.models.finetune.FinetuneConfig``
-    (``task='retrieval'``, ``text_agg_type='cls'``)."""
+    (``task='retrieval'``). ``text_agg_type``: the text embedding from the
+    CLS token ('cls', every config) or pooled over the words ('avg' /
+    'max', ``NCEHeadForMM``)."""
 
     swin: SwinConfig = SwinConfig()
     text_bert: BertConfig = BertConfig()
     vts_embed_dim: int = 768
+    text_agg_type: str = "cls"
     # the JAX config derives this as fusion.hidden_size * 2 (768 * 2)
     img_hidden_dim: int = 1536
 
@@ -51,7 +54,8 @@ class CloverFinetune(nn.Module):
             self.backbone = SwinTransformer3D(config.swin, kernels)
             self.text_backbone = BertTextEncoder(config.text_bert, dtype, kernels)
             self.ssl_head = NCEHeadForMM(config.swin.num_features, config.text_bert.hidden_size,
-                                         config.img_hidden_dim, config.vts_embed_dim)
+                                         config.img_hidden_dim, config.vts_embed_dim,
+                                         config.text_agg_type)
 
     def _visual_feat(self, imgs: torch.Tensor, n_text: int,
                      bias_cache: Optional[Dict[str, torch.Tensor]],
@@ -64,14 +68,17 @@ class CloverFinetune(nn.Module):
 
     def forward_video(self, imgs: torch.Tensor,
                       bias_cache: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
-        """(B[, n_clips], D', H', W', K) host s2d clips -> (B, D) embedding."""
+        """(B[, n_clips], D', H', W', K) host s2d clips (or (B[, n_clips], T,
+        H, W, 3) frames with ``embed_impl`` 's2d' / 'conv') -> (B, D)
+        embedding."""
         B = imgs.shape[0]
         imgs = imgs.reshape((-1,) + imgs.shape[-4:])
         return self.ssl_head.forward_vision(self._visual_feat(imgs, B, bias_cache))
 
     def forward_text(self, token_ids: torch.Tensor, input_mask: torch.Tensor) -> torch.Tensor:
         """(B, L) ids / mask -> (B, D) embedding."""
-        return self.ssl_head.forward_text(self.text_backbone(token_ids, input_mask))
+        return self.ssl_head.forward_text(self.text_backbone(token_ids, input_mask), input_mask,
+                                          token_ids)
 
     def forward_test(self, imgs: torch.Tensor, token_ids: torch.Tensor,
                      input_mask: torch.Tensor,
@@ -83,7 +90,7 @@ class CloverFinetune(nn.Module):
         input_mask = input_mask.reshape((-1,) + input_mask.shape[-1:])
         visual_feat = self._visual_feat(imgs, B, bias_cache)
         text_hidden = self.text_backbone(token_ids, input_mask)
-        return self.ssl_head(visual_feat, text_hidden)
+        return self.ssl_head(visual_feat, text_hidden, input_mask, token_ids)
 
     def forward_train(self, batch: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator] = None):
@@ -99,4 +106,4 @@ class CloverFinetune(nn.Module):
         input_mask = batch["input_mask"].reshape((-1,) + batch["input_mask"].shape[-1:])
         visual_feat = self._visual_feat(imgs, B, None, generator)
         text_hidden = self.text_backbone(token_ids, input_mask, generator)
-        return self.ssl_head(visual_feat, text_hidden)
+        return self.ssl_head(visual_feat, text_hidden, input_mask, token_ids, generator)

@@ -1,8 +1,8 @@
 """Projection and readout heads (port of ``clover_tpu/models/heads.py``):
 
 - ``NCEHeadForMM``: the dual-tower contrastive head (reference
-  mmaction/models/heads/ssl_head.py:8-139), LayerNorm projector, CLS text
-  aggregation;
+  mmaction/models/heads/ssl_head.py:8-139): LayerNorm or BatchNorm
+  projector, text pooled from CLS or by mean or max over the words;
 - ``NCEHeadForVision`` (ssl_head.py:142-221) and ``NCEHeadForText``
   (:224-297): the pretrain reconstruction heads;
 - ``MLMHead`` (mlm_itm_head.py:10-52): transform + vocabulary decoder.
@@ -24,36 +24,71 @@ from torch import nn
 from clover_tpu_torch.models.bert import BertConfig, BertPredictionTransform
 from clover_tpu_torch.models.layers import Linear, ProjectorNorm, dropout
 
+SEP_TOKEN_ID = 102
+
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x.float()).to(x.dtype)
 
 
 class NCEHeadForMM(nn.Module):
-    """Dual-tower contrastive head: video pool + MLP / text CLS + MLP."""
+    """Dual-tower contrastive head: video pool + MLP / text pooling + MLP.
+
+    ``text_agg_type``: 'cls' takes the CLS token; 'avg' / 'max' pool the
+    words: CLS dropped, SEP (id 102) and padding masked out, 'avg' the sum
+    over max(count, 1e-6), 'max' the max over the zero-filled masked tokens.
+    ``use_ln=False`` makes the image projector norms :class:`BatchNorm`;
+    ``text_bn`` adds one after text_fc1. ``dropout_ratio``: the pooled
+    video feature's dropout in training, from ``generator``."""
 
     def __init__(self, visual_in_channels: int = 1024, text_in_channels: int = 768,
-                 img_hidden_dim: int = 1536, vts_embed_dim: int = 768):
+                 img_hidden_dim: int = 1536, vts_embed_dim: int = 768,
+                 text_agg_type: str = "cls", use_ln: bool = True, text_bn: bool = False,
+                 dropout_ratio: float = 0.0):
         super().__init__()
+        if text_agg_type not in ("cls", "avg", "max"):
+            raise ValueError(f"unknown text_agg_type {text_agg_type!r}")
+        self.text_agg_type, self.drop = text_agg_type, dropout_ratio
         self.img_fc1 = Linear(visual_in_channels, img_hidden_dim, init="xavier")
-        self.img_norm1 = ProjectorNorm(img_hidden_dim)
+        self.img_norm1 = ProjectorNorm(img_hidden_dim, use_ln)
         self.img_fc2 = Linear(img_hidden_dim, vts_embed_dim, init="xavier")
-        self.img_norm2 = ProjectorNorm(vts_embed_dim)
+        self.img_norm2 = ProjectorNorm(vts_embed_dim, use_ln)
         self.text_fc1 = Linear(text_in_channels, text_in_channels, init="xavier")
+        self.text_norm = ProjectorNorm(text_in_channels, use_ln=False) if text_bn else None
         self.text_fc2 = Linear(text_in_channels, vts_embed_dim, init="xavier")
 
-    def forward(self, visual_feat: torch.Tensor, text_feat: torch.Tensor):
-        return self.forward_vision(visual_feat), self.forward_text(text_feat)
+    def forward(self, visual_feat: torch.Tensor, text_feat: torch.Tensor,
+                text_mask: Optional[torch.Tensor] = None,
+                token_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        return (self.forward_vision(visual_feat, generator),
+                self.forward_text(text_feat, text_mask, token_ids))
 
-    def forward_vision(self, visual_feat: torch.Tensor) -> torch.Tensor:
+    def forward_vision(self, visual_feat: torch.Tensor,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, H, W, C) channels-last features -> (B, vts_embed_dim)."""
-        img = visual_feat.mean(dim=(1, 2, 3))
+        img = dropout(visual_feat.mean(dim=(1, 2, 3)), self.drop, generator, self.training)
         img = _gelu(self.img_norm1(self.img_fc1(img)))
         return self.img_norm2(self.img_fc2(img))
 
-    def forward_text(self, text_feat: torch.Tensor) -> torch.Tensor:
-        """(B, S, D) hidden states -> (B, vts_embed_dim), from the CLS token."""
-        return self.text_fc2(_gelu(self.text_fc1(text_feat[:, 0])))
+    def forward_text(self, text_feat: torch.Tensor, text_mask: Optional[torch.Tensor] = None,
+                     token_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S, D) hidden states (with the (B, S) mask and ids for 'avg' /
+        'max') -> (B, vts_embed_dim)."""
+        if self.text_agg_type == "cls":
+            text = text_feat[:, 0]
+        else:
+            mask = torch.where(token_ids == SEP_TOKEN_ID, torch.zeros_like(text_mask), text_mask)
+            mask = mask[:, 1:].to(text_feat.dtype)[..., None]
+            masked = text_feat[:, 1:] * mask
+            if self.text_agg_type == "avg":
+                text = masked.sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1e-6)
+            else:
+                text = masked.amax(dim=1)
+        text = self.text_fc1(text)
+        if self.text_norm is not None:
+            text = self.text_norm(text)
+        return self.text_fc2(_gelu(text))
 
 
 class NCEHeadForVision(nn.Module):

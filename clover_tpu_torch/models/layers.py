@@ -60,12 +60,21 @@ class LayerNorm(nn.Module):
 
 class Mlp(nn.Module):
     """fc1 / fc2 of the transformer MLP (reference swin_transformer_3d.py
-    :250-268). The block runs them through ``fused_ln_mlp_residual``."""
+    :250-268). The block runs them through ``fused_ln_mlp_residual``; the
+    forward is the plain route with its dropouts (the JAX ``Mlp``): fc1,
+    GELU ('tanh' or 'erf'), dropout, fc2, dropout, the dropouts at ``rate``
+    from ``generator`` in training."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, out_features)
+
+    def forward(self, x: torch.Tensor, gelu: str = "tanh", rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = F.gelu(self.fc1(x), approximate="tanh" if gelu == "tanh" else "none")
+        h = dropout(h, rate, generator, self.training)
+        return dropout(self.fc2(h), rate, generator, self.training)
 
 
 def _keep_mask(shape, keep: float, generator: Optional[torch.Generator],
@@ -145,14 +154,45 @@ def remat(fn: Callable, *args, generator: Optional[torch.Generator] = None):
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
-class ProjectorNorm(nn.Module):
-    """The contrastive heads' projector norm, LayerNorm form (every live
-    config; ``ln=True`` in the reference). A plain LayerNorm, not a kernel
-    site."""
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over the leading
+    axes of (..., C): ``weight`` / ``bias`` (flax ``scale`` / ``bias``), the
+    running statistics as buffers ``mean`` / ``var`` (flax ``batch_stats``).
+    In training it normalizes with the batch's fp32 mean and its biased
+    variance max(0, E[x^2] - E[x]^2) and updates ra = 0.9 ra + 0.1 batch
+    with the same two (``nn.BatchNorm1d`` keeps the unbiased variance); in
+    eval it uses the running statistics. Output in x's dtype."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
-        self.norm = LayerNorm(features)
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.momentum, self.eps = momentum, eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.float().reshape(-1, x.shape[-1])
+            mean = xf.mean(dim=0)
+            var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x.float() - mean) * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(x.dtype)
+
+
+class ProjectorNorm(nn.Module):
+    """The contrastive heads' projector norm (the reference's ``ln`` switch):
+    LayerNorm (every live config; a plain LayerNorm, not a kernel site) or,
+    with ``use_ln=False``, :class:`BatchNorm`, as ``norm``."""
+
+    def __init__(self, features: int, use_ln: bool = True):
+        super().__init__()
+        self.norm = LayerNorm(features) if use_ln else BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x)

@@ -12,8 +12,11 @@ back, crop: stages whose dims do not divide the window, or
 ``window_resident=False``), the attention routes of ``attention_impl``
 (the flat window attention, kernel K1 with its backward K5, or K11 for long
 windows under ``long_attn``; K9 on the head layout; K10 on the padded
-spatial grid; the plain 'xla_headloop' / 'xla' math), the fused
-LN2+MLP+residual half (kernel K2; in training its stash form), the
+spatial grid; 'fused_block', the half-block K6 in every block of a
+stage that divides the window; the plain 'xla_headloop' / 'xla' math), a
+strided-convolution patch embed (``stride``), the dropouts ``drop_rate`` /
+``attn_drop_rate`` (plain routes in training), the fused LN2+MLP+residual
+half (kernel K2; in training its stash form), the
 forward-only LayerNorm sites (kernel K4, eval only) and, at large windows
 (``SwinConfig.fused_attn``), the fused LN1+attention+proj+residual half
 (kernel K6) in place of LN1, qkv, K1 and proj; in training through
@@ -38,7 +41,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clover_tpu_torch.models.layers import DropPath, LayerNorm, Linear, Mlp, remat, trunc_normal_
+from clover_tpu_torch.models.layers import (
+    DropPath,
+    LayerNorm,
+    Linear,
+    Mlp,
+    dropout,
+    remat,
+    trunc_normal_,
+)
 from clover_tpu_torch.ops.attn_block import (
     FusedAttnBlockFn,
     fused_window_attn_block,
@@ -64,7 +75,8 @@ from clover_tpu_torch.ops.window_attention import (
 )
 
 Tuple3 = Tuple[int, int, int]
-ATTENTION_IMPLS = ("auto", "pallas_flat", "pallas", "pallas_fused", "xla_headloop", "xla")
+ATTENTION_IMPLS = ("auto", "pallas_flat", "pallas", "pallas_fused", "fused_block",
+                   "xla_headloop", "xla")
 LONG_ATTN_N = 384   # long_attn's windows: the 32-frame 8x7x7 (N=392), as fused_attn 'auto'
 
 
@@ -76,9 +88,21 @@ class SwinConfig:
     JAX default) take the raw (B, T, H, W, 3) clip and compute the same
     patch-embed GEMM after a space-to-depth on the device (the JAX 'conv'
     is a convolution with the same weights; its CPU tests hold the two
-    together)."""
+    together). A ``stride`` other than ``patch_size`` makes the raw-clip
+    embed a strided convolution (``F.conv3d``) with its own (pd, ph, pw,
+    C, E) kernel, the JAX ``nn.Conv``; host_s2d and ``fold_normalize``
+    refuse it.
+
+    ``drop_rate`` (after the embed, on each block's attention proj and in
+    its MLP) and ``attn_drop_rate`` (on the attention probabilities) are
+    dropouts drawn from the forward's generator. Every config leaves them
+    at 0. Above 0, a block in training runs its plain route, as the JAX
+    package runs XLA there: ``attn_drop_rate`` the 'xla' attention, with
+    ``drop_rate`` K1 (never K6) and the plain MLP half. In eval they are no
+    ops and the block keeps its kernels."""
 
     patch_size: Tuple3 = (2, 4, 4)
+    stride: Tuple3 = (2, 4, 4)
     in_chans: int = 3
     embed_dim: int = 128
     depths: Tuple[int, ...] = (2, 2, 18, 2)
@@ -90,6 +114,8 @@ class SwinConfig:
     patch_norm: bool = True
     fold_normalize: bool = False
     gelu: str = "tanh"          # 'tanh' | 'erf', as SwinConfig.gelu
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
     drop_path_rate: float = 0.1
     # the fused attention half-block (K6) in eval: 'auto' for windows of
     # N >= 384 tokens (the 32-frame 8x7x7 window), 'on' or 'off' at every
@@ -113,11 +139,16 @@ class SwinConfig:
     # picks it); 'pallas_fused' K10 on the padded qkv grid, every stage on
     # the spatial path; 'xla_headloop' / 'xla' plain PyTorch (XLA in the JAX
     # package): a loop over the heads of the flat qkv, one product on the
-    # head layout. The JAX 'fused_block' (K6 on the spatial path) is not
-    # ported yet
+    # head layout; 'fused_block' K6 in every block of a stage whose dims
+    # divide the window, on the window-resident layout whatever
+    # window_resident says (the JAX package rolls and partitions each block
+    # on its spatial path; the function is the same), K1 on the partitioned
+    # windows where a stage pads or drop_rate is on in training (the JAX
+    # package runs XLA there; attn_drop_rate: 'xla')
     attention_impl: str = "auto"
     # a stage whose dims divide the window keeps its activations partitioned
     # into windows (not under 'pallas_fused'); False: every stage spatial
+    # (under 'fused_block' a stage that divides the window stays resident)
     window_resident: bool = True
     # windows of N >= 384 on the flat route: 'off' K1, 'v7' K11 on the flat
     # qkv, 'v6' K11 head-major after a relayout (the JAX CLOVER_WA_LONG)
@@ -137,9 +168,11 @@ class SwinConfig:
         if not isinstance(self.use_checkpoint, (bool, tuple, list)):
             raise ValueError(f"use_checkpoint must be a bool or a tuple of stage ids, "
                              f"got {self.use_checkpoint!r}")
-        if self.attention_impl == "fused_block":
-            raise ValueError("attention_impl='fused_block' (K6 on the spatial path) is not "
-                             "ported yet: ROADMAP.md Queue 1 item 2")
+        if tuple(self.patch_size) != tuple(self.stride):
+            if self.fold_normalize:
+                raise ValueError("fold_normalize requires kernel == stride")
+            if self.embed_impl == "host_s2d":
+                raise ValueError("embed_impl='host_s2d' requires kernel == stride")
         if self.attention_impl not in ATTENTION_IMPLS:
             raise ValueError(f"attention_impl must be one of {ATTENTION_IMPLS}, "
                              f"got {self.attention_impl!r}")
@@ -271,6 +304,13 @@ def swin_bias_cache(backbone: "SwinTransformer3D", cfg: SwinConfig,
     return cache
 
 
+def embed_dims(cfg: SwinConfig, in_shape: Tuple3) -> Tuple3:
+    """(T, H, W) raw clip -> (D', H', W') token dims after the patch embed:
+    the clip padded to whole patches, then patches every ``stride``."""
+    return tuple((-(-s // p) * p - p) // st + 1
+                 for s, p, st in zip(in_shape, cfg.patch_size, cfg.stride))
+
+
 @functools.lru_cache(maxsize=None)
 def _shift_region_ids(padded_size: Tuple3, window: Tuple3,
                       shift: Tuple3) -> Optional[np.ndarray]:
@@ -400,14 +440,17 @@ class WindowAttention3D(nn.Module):
     :meth:`_kept`). K1 and K5 take theirs the same way: a given (cached)
     bias's laid out once and kept in eval, else gathered from the table once
     a call (:func:`k1_terms_from_table`), shared by K1 and K5 (which gathers
-    its transposed form from them)."""
+    its transposed form from them). ``attn_drop``: the probabilities'
+    dropout rate in training, on the 'xla' route only (the block picks it
+    when the rate is above 0)."""
 
     def __init__(self, dim: int, full_window: Tuple3, num_heads: int, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, kernels: bool = True):
+                 qk_scale: Optional[float] = None, kernels: bool = True, attn_drop: float = 0.0):
         super().__init__()
         self.dim, self.full_window, self.num_heads = dim, tuple(full_window), num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.kernels = kernels
+        self.attn_drop = attn_drop
         self.qkv = Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = Linear(dim, dim)
         table_len = int(np.prod([2 * w - 1 for w in self.full_window]))
@@ -460,8 +503,8 @@ class WindowAttention3D(nn.Module):
 
     def forward(self, x: torch.Tensor, eff_window: Tuple3, mask: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None, impl: str = "pallas_flat",
-                long_attn: str = "off",
-                mask_terms: Optional[torch.Tensor] = None) -> torch.Tensor:
+                long_attn: str = "off", mask_terms: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         N = int(np.prod(eff_window))
         given = bias is not None
         if bias is None:
@@ -488,16 +531,20 @@ class WindowAttention3D(nn.Module):
                                                self._terms(bias, mask_terms, N))
             out = flat_from_heads(out).view(x.shape)
         else:
-            out = _xla_attention(qkv, bias, mask, self.scale, nH, impl == "xla_headloop")
+            drop = self.attn_drop if self.training else 0.0
+            out = _xla_attention(qkv, bias, mask, self.scale, nH, impl == "xla_headloop", drop,
+                                 generator)
         return self.proj(out)
 
 
 def _xla_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
-                   scale: float, nH: int, headloop: bool) -> torch.Tensor:
+                   scale: float, nH: int, headloop: bool, attn_drop: float = 0.0,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The JAX 'xla_headloop' / 'xla' math on (Bn, N, 3C) qkv: logits in the
     compute dtype (bias and mask rounded to it), softmax in fp32, the
-    probabilities rounded back; per head on slices of the flat qkv, or as one
-    product on the head layout. -> (Bn, N, C)."""
+    probabilities rounded back (and dropped at ``attn_drop`` from
+    ``generator``); per head on slices of the flat qkv, or as one product on
+    the head layout. -> (Bn, N, C)."""
     Bn, N, threeC = qkv.shape
     C, dt = threeC // 3, qkv.dtype
     hd = C // nH
@@ -508,7 +555,9 @@ def _xla_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.T
             nW = mask.shape[0]
             m = mask.to(dt) if headloop else mask.to(dt)[:, None]
             logits = (logits.view(Bn // nW, nW, *logits.shape[1:]) + m).view(logits.shape)
-        return torch.matmul(torch.softmax(logits.float(), dim=-1).to(dt), v)
+        probs = dropout(torch.softmax(logits.float(), dim=-1).to(dt), attn_drop, generator,
+                        attn_drop > 0)
+        return torch.matmul(probs, v)
 
     if headloop:
         return torch.cat([attend(*(qkv[..., i * C + h * hd:i * C + (h + 1) * hd]
@@ -530,30 +579,53 @@ class SwinBlock3D(nn.Module):
     block's window size, a resident block's first half under 'pallas_flat'
     or 'pallas' is the fused half-block (K6, ``_fused_resident_half`` of the
     JAX package) on the block's own parameters: in eval one call of it, in
-    training ``FusedAttnBlockFn`` with DropPath as a per-window row scale."""
+    training ``FusedAttnBlockFn`` with DropPath as a per-window row scale.
+    Under 'fused_block' every resident block takes that half-block at any
+    window size (the JAX ``_fused_attn_half``); a spatial block (a stage that
+    pads) takes K1 on the partitioned windows, and so does a block with a
+    dropout on in training ('xla' with ``attn_drop``).
+
+    ``drop`` and ``attn_drop`` (the config's ``drop_rate`` and
+    ``attn_drop_rate``): above 0 in training the block runs its plain route
+    (:meth:`_plain_drops`), drawing the dropouts from ``generator``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: Tuple3, shift_size: Tuple3,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None, gelu: str = "tanh", kernels: bool = True,
                  drop_path: float = 0.0, fused_attn: str = "auto", mlp_stash: bool = True,
-                 mlp_bwd: str = "xla", attention_impl: str = "auto", long_attn: str = "off"):
+                 mlp_bwd: str = "xla", attention_impl: str = "auto", long_attn: str = "off",
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.window_size, self.shift_size = tuple(window_size), tuple(shift_size)
         self.gelu = gelu
+        self.drop = drop
         self.mlp_stash, self.mlp_bwd = mlp_stash, mlp_bwd
         self.kernels = kernels
         self.fused_attn = fused_attn
         self.attention_impl, self.long_attn = attention_impl, long_attn
         self.norm1 = LayerNorm(dim, kernel=kernels)
-        self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias, qk_scale, kernels)
+        self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias, qk_scale, kernels,
+                                      attn_drop)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
+    def _plain_drops(self) -> bool:
+        """Is a dropout of the block on (training, a rate above 0)? Then its
+        attention proj and MLP take the plain route with the dropouts, as
+        the JAX block leaves its kernels there."""
+        return self.training and (self.drop > 0.0 or self.attn.attn_drop > 0.0)
+
     def _resolve_impl(self) -> str:
         """'auto' is the flat route, the TPU's 'pallas_flat' (the JAX block
-        takes 'xla_headloop' off the TPU only to spare interpret mode)."""
-        return "pallas_flat" if self.attention_impl == "auto" else self.attention_impl
+        takes 'xla_headloop' off the TPU only to spare interpret mode), and
+        so is 'fused_block' where the block leaves K6; the probabilities'
+        dropout in training takes the plain 'xla' route."""
+        if self.training and self.attn.attn_drop > 0.0:
+            return "xla"
+        if self.attention_impl in ("auto", "fused_block"):
+            return "pallas_flat"
+        return self.attention_impl
 
     def _mask(self, impl: str, dims: Tuple3, window: Tuple3, shift: Tuple3, device):
         """The shift mask in the form ``impl``'s route takes: region ids on
@@ -579,7 +651,9 @@ class SwinBlock3D(nn.Module):
         B, L, C = x.shape
         N = int(np.prod(window))
         do_shift = any(s > 0 for s in shift)
-        fused = impl in ("pallas_flat", "pallas") and fused_attn_enabled(self.fused_attn, N)
+        fused = (impl in ("pallas_flat", "pallas") and not self._plain_drops()
+                 and (fused_attn_enabled(self.fused_attn, N)
+                      or self.attention_impl == "fused_block"))
         mask = terms = None
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
@@ -590,8 +664,9 @@ class SwinBlock3D(nn.Module):
         else:
             xn = self.norm1(x)
             xn = xn.reshape(-1, C) if impl == "pallas_flat" else xn.reshape(-1, N, C)
-            attn = self.attn(xn, window, mask, bias, impl, self.long_attn, terms).view(B, L, C)
-            x = x + self.drop_path(attn, generator)
+            attn = self.attn(xn, window, mask, bias, impl, self.long_attn, terms,
+                             generator).view(B, L, C)
+            x = x + self.drop_path(dropout(attn, self.drop, generator, self.training), generator)
         x = self._mlp_half(x, generator)
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=True)
@@ -625,13 +700,13 @@ class SwinBlock3D(nn.Module):
         else:
             xw = window_partition(xn, window)
             xw = xw.reshape(-1, C) if impl == "pallas_flat" else xw
-            out = self.attn(xw, window, mask, bias, impl, self.long_attn, terms)
+            out = self.attn(xw, window, mask, bias, impl, self.long_attn, terms, generator)
             out = window_reverse(out.view(-1, N, C), window, B, *padded)
         if do_shift:
             out = torch.roll(out, shift, (1, 2, 3))
         if any(pad):
             out = out[:, :D, :H, :W]
-        x = x + self.drop_path(out, generator)
+        x = x + self.drop_path(dropout(out, self.drop, generator, self.training), generator)
         return self._mlp_half(x, generator)
 
     def _fused_attn_half(self, x: torch.Tensor, window: Tuple3,
@@ -671,6 +746,9 @@ class SwinBlock3D(nn.Module):
         """Rank-agnostic: x (B, L, C) or (B, D, H, W, C), the DropPath
         factor of sample b on its prod(x.shape[1:-1]) rows."""
         B, C = x.shape[0], x.shape[-1]
+        if self.training and self.drop > 0.0:   # the JAX Mlp, its dropouts on
+            return x + self.drop_path(self.mlp(self.norm2(x), self.gelu, self.drop, generator),
+                                      generator)
         args = (x.reshape(-1, C), self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
         if not self.training:
@@ -723,20 +801,29 @@ class PatchEmbed3D(nn.Module):
     one GEMM. ``proj`` keeps the JAX Dense layout (pd*ph*pw*C_in, E),
     features in (dt, dy, dx, c) order. With ``fold_normalize`` the input is
     pixel-scale and the ImageNet (x-mean)/std is folded into the weights in
-    fp32 before the cast."""
+    fp32 before the cast. A ``stride`` other than the patch (raw clips only)
+    makes it the JAX ``nn.Conv``: ``proj`` keeps that kernel's (pd, ph, pw,
+    C_in, E) layout and the embed is ``F.conv3d`` on the clip padded to whole
+    patches (as the JAX embed pads it)."""
 
     def __init__(self, cfg: SwinConfig, kernels: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.strided = tuple(cfg.patch_size) != tuple(cfg.stride)
         K = int(np.prod(cfg.patch_size)) * cfg.in_chans
+        shape = (*cfg.patch_size, cfg.in_chans) if self.strided else (K,)
         self.proj = nn.ParameterDict({
-            "weight": nn.Parameter(torch.zeros(K, cfg.embed_dim)),
+            "weight": nn.Parameter(torch.zeros(*shape, cfg.embed_dim)),
             "bias": nn.Parameter(torch.zeros(cfg.embed_dim)),
         })
         self.norm = LayerNorm(cfg.embed_dim, kernel=kernels) if cfg.patch_norm else None
 
     def init_weights(self, generator: torch.Generator) -> None:
-        trunc_normal_(self.proj["weight"], generator)
+        if self.strided:   # flax nn.Conv's lecun_normal: fan-in variance, truncated at 2
+            std = (1.0 / np.prod(self.proj["weight"].shape[:-1])) ** 0.5 / .87962566103423978
+            trunc_normal_(self.proj["weight"], generator, std)
+        else:
+            trunc_normal_(self.proj["weight"], generator)
         self.proj["bias"].zero_()
 
     def _folded(self):
@@ -751,6 +838,8 @@ class PatchEmbed3D(nn.Module):
         return k3.reshape(k.shape), b
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.strided:
+            return self._normed(self._conv(x))
         K = self.proj["weight"].shape[0]
         if self.cfg.embed_impl != "host_s2d":
             x = space_to_depth(x, self.cfg.patch_size)
@@ -758,7 +847,22 @@ class PatchEmbed3D(nn.Module):
             raise ValueError(f"host_s2d expects s2d input with {K} features, got "
                              f"{x.shape[-1]}: use space_to_depth_host on the loader")
         k, b = self._folded()
-        x = torch.matmul(x, k.to(x.dtype)) + b.to(x.dtype)
+        return self._normed(torch.matmul(x, k.to(x.dtype)) + b.to(x.dtype))
+
+    def _conv(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, T, H, W, C_in) -> (B, D', H', W', E): the clip zero padded to
+        whole patches, then the strided convolution in x's dtype."""
+        pd, ph, pw = self.cfg.patch_size
+        D, H, W = x.shape[1:4]
+        pad = ((-D) % pd, (-H) % ph, (-W) % pw)
+        if any(pad):
+            x = F.pad(x, (0, 0, 0, pad[2], 0, pad[1], 0, pad[0]))
+        w = self.proj["weight"].to(x.dtype).permute(4, 3, 0, 1, 2)
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, self.proj["bias"].to(x.dtype),
+                     stride=tuple(self.cfg.stride))
+        return y.permute(0, 2, 3, 4, 1)
+
+    def _normed(self, x: torch.Tensor) -> torch.Tensor:
         return self.norm(x) if self.norm is not None else x
 
 
@@ -797,7 +901,8 @@ class SwinTransformer3D(nn.Module):
                     (0, 0, 0) if i_blk % 2 == 0 else shift, cfg.mlp_ratio, cfg.qkv_bias,
                     cfg.qk_scale, cfg.gelu, kernels,
                     dpr[sum(cfg.depths[:i_stage]) + i_blk], cfg.fused_attn, cfg.mlp_stash,
-                    cfg.mlp_bwd, cfg.attention_impl, cfg.long_attn))
+                    cfg.mlp_bwd, cfg.attention_impl, cfg.long_attn, cfg.drop_rate,
+                    cfg.attn_drop_rate))
             if i_stage < len(cfg.depths) - 1:
                 self.add_module(f"stage_{i_stage}_downsample", PatchMerging(dim, kernels))
         self.norm = LayerNorm(cfg.num_features, kernel=kernels)
@@ -827,13 +932,15 @@ class SwinTransformer3D(nn.Module):
             w = token_mask.repeat_interleave(H // mh, dim=-2).repeat_interleave(W // mw, dim=-1)
             w = w[:, None, :, :, None].expand(B, D, H, W, 1).to(x.dtype)
             x = x * (1.0 - w) + self.mask_token.to(x.dtype) * w
+        x = dropout(x, cfg.drop_rate, generator, self.training)
         for i_stage, depth in enumerate(cfg.depths):
             B, D, H, W, C = x.shape
             dims = (D, H, W)
             window = effective_window(dims, cfg.window_size)
             # a resident stage partitions once and reverses once; the others'
             # blocks take (B, D, H, W, C) and pad, roll and partition each
-            resident = (cfg.window_resident and cfg.attention_impl != "pallas_fused"
+            resident = ((cfg.window_resident or cfg.attention_impl == "fused_block")
+                        and cfg.attention_impl != "pallas_fused"
                         and not any(d % w for d, w in zip(dims, window)))
             if resident:
                 x = window_partition(x, window).reshape(B, -1, C)

@@ -9,7 +9,8 @@ mask for the same dims. Tolerance 2e-5 absolute and relative, fp32
 summation-order noise, as K1's plain-vs-Pallas tests have.
 
 The ``gpu`` tests launch K6 at the four Swin-B stage shapes of the 32-frame
-eval and skip without a card. JAX is imported inside the tests that compare
+eval, and in a Swin block under ``attention_impl='fused_block'`` at 8-frame
+stage shapes (N=196, the window-resident layout), and skip without a card. JAX is imported inside the tests that compare
 with it (the ``jx`` fixture), so on a machine without JAX the ``gpu`` tests
 still run: ``python -m pytest tests/test_torch_attn_block.py -m gpu
 --noconftest``.
@@ -430,3 +431,35 @@ def test_k6_outputs_keep_their_bits_on_card(cuda, stage, shifted):
     saved in K6_DIGESTS: the GEMM core it shares with K2, K3 and K7 changed
     no bit."""
     assert k6_digest(cuda, stage, shifted) == K6_DIGESTS[stage, shifted]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage,shifted", [(0, False), (0, True), (2, True), (3, False)])
+def test_fused_block_spatial_path_on_card(cuda, stage, shifted):
+    """A Swin-B block under attention_impl='fused_block' at a stage of the
+    8-frame eval, on the window-resident layout (two clips): K6 at N=196
+    (a shifted block on the permuted windows with the region ids), then K2;
+    against the same block with
+    kernels=False on the same weights within the sum of K6's and K2's bf16
+    limits (chip_smoke.py's TOL), one launch of each."""
+    from clover_tpu_torch.models.layers import init_params
+
+    C, side = 128 << stage, 56 >> stage
+    dims = (4, side, side)
+    shift = (4, 3, 3) if shifted else (0, 0, 0)
+    blocks = [pswin.SwinBlock3D(C, C // 32, (8, 7, 7), shift, kernels=k,
+                                attention_impl="fused_block").to(cuda).eval() for k in (True, False)]
+    init_params(blocks[0], torch.Generator().manual_seed(stage))
+    blocks[1].load_state_dict(blocks[0].state_dict())
+    g = torch.Generator().manual_seed(50 + stage)
+    x = torch.randn(2, *dims, C, generator=g).to(cuda, torch.bfloat16)
+    x = pswin.window_partition(x, (4, 7, 7)).reshape(2, -1, C)
+    before = (ops.fused_window_attn_block.launches, ops.fused_ln_mlp_residual.launches)
+    with torch.no_grad():
+        got, ref = (blk(x, dims) for blk in blocks)
+    torch.cuda.synchronize()
+    assert (ops.fused_window_attn_block.launches, ops.fused_ln_mlp_residual.launches) == (
+        before[0] + 1, before[1] + 1)
+    err = (got.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert err <= (2e-2 + 1e-2 * scale) + (2e-2 + 2e-2 * scale), err

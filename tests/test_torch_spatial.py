@@ -316,7 +316,8 @@ def test_drop_path_on_the_spatial_layout_drops_and_scales_whole_samples():
 # ------------------------------------------------------- (f) config refusals
 
 @pytest.mark.parametrize("fields,match", [
-    (dict(attention_impl="fused_block"), "ROADMAP.md Queue 1 item 2"),
+    (dict(fold_normalize=True, patch_size=(2, 4, 4), stride=(1, 2, 2)),
+     "fold_normalize requires kernel == stride"),
     (dict(attention_impl="flash"), "attention_impl must be one of"),
     (dict(long_attn="v8"), "long_attn must be"),
     (dict(long_attn="v7"), "fused_attn='off'"),

@@ -91,14 +91,22 @@ def test_window_attention_bwd_matches_pallas(route, mask_form, nH, jx):
 @pytest.mark.parametrize("masked", [False, True])
 def test_window_attention_fn_gradcheck(masked):
     """WindowAttentionFn's backward (the plain halves) against finite
-    differences in float64 at a tiny shape (gradcheck's own tolerances)."""
+    differences in float64 at a tiny shape (gradcheck's own tolerances). On
+    one intra-op thread: gradcheck's thousands of tiny calls take ~3 s so,
+    and minutes when the thread pool shares busy cores with other test
+    processes."""
     rng = np.random.default_rng(21)
     Bn, N, nH = 2, 6, 2
     qkv = torch.tensor(rng.normal(size=(Bn * N, 3 * nH * 32)), requires_grad=True)
     bias = torch.tensor(rng.normal(size=(nH, N, N)), requires_grad=True)
     ids = torch.tensor([[0, 0, 1, 1, 1, 2]], dtype=torch.int32) if masked else None
-    assert torch.autograd.gradcheck(
-        lambda q, b: ops.WindowAttentionFn.apply(q, b, ids, 0.3, nH, N, True), (qkv, bias))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        assert torch.autograd.gradcheck(
+            lambda q, b: ops.WindowAttentionFn.apply(q, b, ids, 0.3, nH, N, True), (qkv, bias))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _mlp_args(rng, C, H):
