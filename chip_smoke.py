@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of clover_tpu_torch's retrieval-eval, retrieval-finetune and
-pretrain paths on one CUDA card.
+"""Smoke run of clover_tpu_torch's retrieval-eval, retrieval-finetune,
+pretrain, QA / FIB and ITM paths on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -101,6 +101,24 @@ Phases, in order; any failure raises and exits non-zero:
    K4, whose norm1 calls K6 takes over) against its plain version at the
    four stage shapes, then the path against its plain path as phase 5c
    (24 K6 launches a forward, cosine per row, clips/s, peak memory);
+8i. Q8M, the QA multiple-choice finetune step (configs/exp/finetune_lsmdc_mc.py:
+   answer_cls, the MC head; 16 videos of 8 x 224^2, 5 candidates of L=30,
+   each video's tokens repeated per candidate through the 3-layer fusion
+   tower; AdamW 1.2e-5, clip 50): K1, K5 and K2's stash form at its Swin
+   shapes, then 5 steps of make_qa_train_step with the kernels and with the
+   plain versions, checked and timed as phase 8;
+8j. Q8O, the open-ended QA eval (finetune_msrvttQA.py: answer_cls, 1500
+   answers; 64 videos, one question of L=40 each) through make_qa_eval_step
+   + run_qa_eval over 3 batches: K1-K4 at its shapes (the text and fusion
+   towers' K3 / K4 calls too), launches per forward, per-row score cosine
+   against the plain path, both accuracies, clips/s, peak memory;
+8k. FIB (finetune_lsmdc_fib.py: the [MASK] readout, 1000 answers), one
+   batch of Q8O's shape with one [MASK] a row, checked as 8j;
+8l. ITM (bench.py's bench_itm): K3 and K4 at a score call's shapes, score
+   calls of 128 cached-token pairs through make_itm_score_step (launches,
+   the probabilities' largest gap from plain, pairs/s), then
+   run_itm_retrieval_eval end to end over 64 videos x 64 texts on both
+   paths (launches, both recall dicts);
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -243,6 +261,33 @@ F12R_STEPS = TRAIN_STEPS
 # E8F: the 8-frame eval under attention_impl='fused_block', K6 (N=196, LN1
 # inside it) in every block; a SPATIAL_PATHS spec
 E8F = (dict(attention_impl="fused_block"), B, T, S, 2, {"K6": 24, "K4": 18}, COS32_MIN)
+# slice 4 (phases 8i-8l): the QA / multiple-choice / FIB finetune and the ITM
+# rerank eval through the fusion tower, on configs/_base_/models/clover_base.py's
+# towers (Swin-B, BERT-base, the 3-layer fusion tower over 4 x 49 video tokens).
+# Q8M, configs/exp/finetune_lsmdc_mc.py: 16 videos of 8 frames, 5 candidates of
+# L=30 each (each video's tokens repeated per candidate: 80 x (196 + 30) fusion
+# rows), AdamW 1.2e-5, wd 0.01, betas (0.9, 0.98), clip 50; in training the
+# fusion tower's FFN and norms are plain (fused_mlp_train '0')
+QB, QN = 16, 5
+Q8M_OPTIM = dict(base_lr=1.2e-5, total_steps=1000, warmup_steps=10, weight_decay=0.01,
+                 betas=(0.9, 0.98))
+Q8M_CLIP = 50.0
+Q8M_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24}
+# Q8O, configs/exp/finetune_msrvttQA.py (answer_cls, 1500 answers), and FIB,
+# configs/exp/finetune_lsmdc_fib.py (answer_mask, 1000 answers): 64 videos of 8
+# frames with one question of L=40 each; an eval forward runs eval8's Swin
+# launches, the text tower's K3 12 and K4 13 and the fusion tower's K3 3 and K4 4
+# (visual_norm on 64 x 196 rows, an attention_norm a layer on 64 x 236)
+OB, OL, O_LABELS, O_BATCHES, FIB_LABELS = 64, 40, 1500, 3, 1000
+QA_EVAL_LAUNCHES = {"K1": 24, "K2": 24, "K3": 15, "K4": 46}
+# ITM, bench.py's bench_itm: a score call of 128 (cached (4, 49, 1024) bf16
+# video tokens, L=30 ids) pairs through the text tower, the fusion tower and
+# the ITM head; then run_itm_retrieval_eval over 2 batches of 32 clips (64
+# videos x 64 texts, every pair, 128 pairs a call). The scores are match
+# probabilities: kernel and plain within ITM_GAP_MAX of each other
+ITM_PAIRS, ITM_CALLS, ITM_EVAL_BATCHES, ITM_GAP_MAX = 128, 8, 2, 2e-2
+ITM_LAUNCHES = {"K3": 15, "K4": 17}
+ITM_EMBED_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -283,23 +328,25 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def path_shapes(cfg, frames=T):
-    """Per-forward kernel calls of the eval path at ``frames`` frames:
-    {kernel: [(args, count)]}. A block whose window has N >= 384 tokens runs
+def path_shapes(cfg, frames=T, clips=B, text_len=L):
+    """Per-forward kernel calls of the eval path at ``frames`` frames over
+    ``clips`` clips, one text of ``text_len`` tokens each: {kernel: [(args,
+    count)]}. A block whose window has N >= 384 tokens runs
     LN1 + attention + proj as K6 (SwinConfig.fused_attn 'auto'), and so does
     every block under attention_impl='fused_block' (no stage here pads);
-    else LN1 as K4 and the attention as K1."""
+    else LN1 as K4 and the attention as K1. A QA model's fusion tower adds
+    its calls (fusion_shapes)."""
     from clover_tpu_torch.models.swin3d import (_shift_region_ids, effective_window,
                                                 fused_attn_enabled)
 
-    sw, bt = cfg.swin, cfg.text_bert
+    sw = cfg.swin
     dims = (frames // sw.patch_size[0], S // sw.patch_size[1], S // sw.patch_size[2])
     shift = tuple(s // 2 for s in sw.window_size)
     calls = {"K1": [], "K2": [], "K3": [], "K4": [], "K6": []}
-    calls["K4"].append(((B * int(np.prod(dims)), sw.embed_dim), 1))          # patch norm
+    calls["K4"].append(((clips * int(np.prod(dims)), sw.embed_dim), 1))      # patch norm
     for i, depth in enumerate(sw.depths):
         C, nH = sw.embed_dim * 2 ** i, sw.num_heads[i]
-        rows = B * int(np.prod(dims))
+        rows = clips * int(np.prod(dims))
         window, sh = effective_window(dims, sw.window_size, shift)
         N = int(np.prod(window))
         ids = _shift_region_ids(dims, window, sh)
@@ -315,11 +362,33 @@ def path_shapes(cfg, frames=T):
             calls["K4"].append(((rows, C), depth))                           # norm1
         if i < len(sw.depths) - 1:
             dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
-            calls["K4"].append(((B * int(np.prod(dims)), 4 * C), 1))         # merging
-    calls["K4"].append(((B * int(np.prod(dims)), sw.num_features), 1))       # final norm
-    calls["K4"].append(((B * L, bt.hidden_size), 1 + bt.num_hidden_layers))  # BERT norms
-    calls["K3"].append(((B * L, bt.hidden_size), bt.num_hidden_layers))
+            calls["K4"].append(((clips * int(np.prod(dims)), 4 * C), 1))     # merging
+    calls["K4"].append(((clips * int(np.prod(dims)), sw.num_features), 1))   # final norm
+    for extra in (text_shapes(cfg, clips, text_len),
+                  fusion_shapes(cfg, clips, text_len) if cfg.qa else {}):
+        for k, v in extra.items():
+            calls[k] += v
     return calls
+
+
+def text_shapes(cfg, texts, text_len):
+    """The BERT text tower's K3 / K4 calls over ``texts`` texts of
+    ``text_len`` tokens: the FFN halves, the embedding and attention norms."""
+    bt = cfg.text_bert
+    rows = texts * text_len
+    return {"K3": [((rows, bt.hidden_size), bt.num_hidden_layers)],
+            "K4": [((rows, bt.hidden_size), 1 + bt.num_hidden_layers)]}
+
+
+def fusion_shapes(cfg, texts, text_len):
+    """The fusion tower's K3 / K4 calls over ``texts`` texts of ``text_len``
+    tokens, each with its video's T x S tokens: the FFN halves and the
+    attention norms on (T S + text_len) rows a text, visual_norm on T S."""
+    fu = cfg.fusion
+    vis = fu.num_frames * fu.spatial_tokens
+    rows, layers = texts * (vis + text_len), fu.bert.num_hidden_layers
+    return {"K3": [((rows, fu.hidden_size), layers)],
+            "K4": [((texts * vis, fu.hidden_size), 1), ((rows, fu.hidden_size), layers)]}
 
 
 def bound_ms(flops=0.0, nbytes=0.0, fp32_ops=0.0):
@@ -499,10 +568,12 @@ def spatial_kernel_phase(sw, dev, seed=SEED + 11):
     return out
 
 
-def kernel_phase(cfg, dev, frames=T, seed=SEED, keys=("K1", "K2", "K3", "K4", "K6")):
+def kernel_phase(cfg, dev, frames=T, seed=SEED, keys=("K1", "K2", "K3", "K4", "K6"), clips=B,
+                 text_len=L, calls=None):
     """Each kernel of ``keys`` against its plain version at the path's
-    shapes, with its bound and (K1, K4) one library call's time at the same
-    shapes."""
+    shapes (``calls``, path_shapes(cfg, frames, clips, text_len) by
+    default), with its bound and (K1, K4) one library call's time at the
+    same shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -516,11 +587,12 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED, keys=("K1", "K2", "K3", "K4", "K
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
 
     results = {}
-    calls = {k: v if k in keys else [] for k, v in path_shapes(cfg, frames).items()}
+    calls = calls or path_shapes(cfg, frames, clips, text_len)
+    calls = {k: v if k in keys else [] for k, v in calls.items()}
     if frames == T and calls["K1"]:
         # the region mask at nH=32 too (stage 3 has no shifted block at 8 frames)
         ids_extra = _shift_region_ids((4, 14, 14), (4, 7, 7), (0, 3, 3))[:1]
-        calls["K1"].append(((B, 196, 32, ids_extra), 0))
+        calls["K1"].append(((clips, 196, 32, ids_extra), 0))
 
     record = recorder(results, "forward")
     scale = 32 ** -0.5
@@ -564,7 +636,7 @@ def kernel_phase(cfg, dev, frames=T, seed=SEED, keys=("K1", "K2", "K3", "K4", "K
             k2_chunks_check(k, out, rows, C)
 
     for (rows, C), count in calls["K3"]:
-        H = cfg.text_bert.intermediate_size
+        H = cfg.text_bert.intermediate_size   # the fusion tower's too
         x, w = randn(rows, C), mlp_weights(randn, C, H)
         eps = cfg.text_bert.layer_norm_eps
         k = lambda: ops.fused_mlp_postln(x, *w, eps)   # noqa: E731
@@ -1148,11 +1220,13 @@ def train_phase(model, plain, cfg, dev, card, profile: bool, frames=TT):
 
 
 def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: str, per_step,
-                        shape: str, clips: int, make):
+                        shape: str, clips: int, make, exact_zero=("attention.key.bias",)):
     """The train step built by ``make`` on the kernel model and on the plain
     one, one step per batch on each: launches per step, finite metrics and
-    gradients, step 1's loss, grad_norm and gradient cosines, clips/s from
-    step 3 on and peak memory. -> the kernel path's counts."""
+    gradients, step 1's loss, grad_norm and gradient cosines (but of the
+    tensors named ``exact_zero``, whose gradient is zero in exact
+    arithmetic), clips/s from step 3 on and peak memory. -> the kernel
+    path's counts."""
     import torch
 
     from clover_tpu_torch import ops
@@ -1174,7 +1248,7 @@ def compare_train_paths(model, plain, batches, dev, card, profile: bool, tag: st
     gnorm_rel = abs(k1["grad_norm"] - p1["grad_norm"]) / abs(p1["grad_norm"])
     cos = {}
     for name, g in k_grads.items():
-        if name.endswith("attention.key.bias"):
+        if name.endswith(exact_zero):
             continue
         gp = p_grads[name]
         if gp.norm() > 0 and g.norm() > 0:
@@ -1706,6 +1780,267 @@ def rgb_train_phase(dev, card, profile: bool):
     return counts
 
 
+def qa_config(**fields):
+    """configs/_base_/models/clover_base.py's towers with the host-s2d embed
+    and the experiment's FinetuneConfig fields (``fields``)."""
+    from clover_tpu_torch.models import (BertConfig, FinetuneConfig, FusionConfig,
+                                         SwinConfig)
+
+    return FinetuneConfig(swin=SwinConfig.base(fold_normalize=True), text_bert=BertConfig(),
+                          fusion=FusionConfig(), **fields)
+
+
+def qa_models(cfg):
+    """(kernel model, plain model) of ``cfg`` on the card from one seed, bf16."""
+    import torch
+
+    from clover_tpu_torch.models import CloverFinetune, init_params
+
+    model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True)
+    init_params(model, torch.Generator().manual_seed(SEED))
+    plain = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=False)
+    plain.load_state_dict(model.state_dict())
+    return model, plain
+
+
+def make_qa_batches(cfg, n_batches, videos, n_cand, text_len, seed, labels, mask_token=False):
+    """Seeded host-s2d uint8 clips (videos, 1, T/2, 56, 56, 96), token ids and
+    mask (videos, n_cand, text_len) of varied length ([CLS] first; with
+    ``mask_token`` one [MASK] a row at a seeded position before its
+    padding), labels in [0, labels) and dataset indices, as numpy."""
+    from clover_tpu_torch.models import MASK_TOKEN_ID
+    from clover_tpu_torch.ops.preprocess import space_to_depth_host
+
+    rng = np.random.default_rng(seed)
+    batches = []
+    for i in range(n_batches):
+        frames = rng.integers(0, 256, size=(videos, T, S, S, 3), dtype=np.uint8)
+        lengths = rng.integers(8, text_len + 1, size=(videos, n_cand))
+        tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(videos, n_cand, text_len))
+        tok[..., 0] = 101                                   # [CLS]
+        if mask_token:
+            np.put_along_axis(tok, rng.integers(1, lengths)[..., None], MASK_TOKEN_ID, axis=-1)
+        mask = (np.arange(text_len) < lengths[..., None]).astype(np.int64)
+        batches.append({"imgs": space_to_depth_host(frames, cfg.swin.patch_size)[:, None],
+                        "token_ids": tok * mask, "input_mask": mask,
+                        "label": rng.integers(0, labels, size=videos),
+                        "index": np.arange(i * videos, (i + 1) * videos)})
+    return batches
+
+
+def make_qa_step(model, dev):
+    """The QA finetune step as a user builds it (finetune_lsmdc_mc.py's
+    optimizer and clip). -> (state, step, dropout generator)."""
+    import torch
+
+    from clover_tpu_torch.engine import TrainState, make_optimizer, make_qa_train_step
+
+    optimizer, schedule = make_optimizer(model, **Q8M_OPTIM)
+    state = TrainState.create(model, optimizer, schedule)
+    step = make_qa_train_step(model, grad_clip_norm=Q8M_CLIP)
+
+    def step_checked(state, batch, generator):
+        state, metrics = step(state, batch, generator)
+        check(set(metrics) == {"qa_loss", "loss", "grad_norm"}, f"QA metrics {sorted(metrics)}")
+        return state, metrics
+
+    return state, step_checked, torch.Generator(device=dev).manual_seed(SEED)
+
+
+def q8m_phase(dev, card, profile: bool):
+    """Q8M, the QA-MC finetune step: K1, K5 and K2's stash form at its Swin
+    shapes (16 clips of 8 frames) against their plain versions, then 5
+    steps with the kernels and with the plain versions from one seed,
+    checked as phase 8 (the MC head's output bias aside: a shift shared by
+    a video's candidates, its gradient is zero in exact arithmetic). ->
+    (kernel results, launch counts)."""
+    import torch
+
+    check(QB == TB, "Q8M's Swin batch is the train phases'")
+    cfg = qa_config(task="video_qa", answer_cls=True, qa_head="mc")
+    results = {}
+    train_kernel_phase(cfg, dev, results, T, SEED + 16)
+    model, plain = qa_models(cfg)
+    keys = ("imgs", "token_ids", "input_mask", "label")
+    batches = [{k: torch.as_tensor(b[k]).to(dev) for k in keys}
+               for b in make_qa_batches(cfg, TRAIN_STEPS, QB, QN, L, SEED + 17, QN)]
+    counts = compare_train_paths(
+        model, plain, batches, dev, card, profile, "Q8M (QA-MC train, 8 frames)", Q8M_LAUNCHES,
+        f"B={QB} videos x {QN} candidates, {T}x{S}^2, L={L}", QB, make_qa_step,
+        exact_zero=("attention.key.bias", "qa_head.fc2.bias"))
+    del model, plain, batches
+    torch.cuda.empty_cache()
+    return results, counts
+
+
+def timed_qa_scores(model, batches, dev):
+    """The QA eval step on batches already on the card, with the bias cache
+    the eval loop builds, timed with a host clock around work that ends in a
+    synchronize, after one untimed forward. -> (scores, clips/s)."""
+    import torch
+
+    from clover_tpu_torch.engine import make_qa_eval_step
+    from clover_tpu_torch.models import swin_bias_cache
+
+    step = make_qa_eval_step(model)
+    cache = swin_bias_cache(model.backbone, model.config.swin, batches[0]["imgs"].shape[2:5])
+    on_dev = [tuple(torch.as_tensor(b[k]).to(dev) for k in ("imgs", "token_ids", "input_mask"))
+              for b in batches]
+    step(*on_dev[0], cache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = [step(*a, cache) for a in on_dev]
+    torch.cuda.synchronize()
+    return torch.cat(scores).float(), sum(len(a[0]) for a in on_dev) / (time.perf_counter() - t0)
+
+
+def drive_qa_eval(model, batches):
+    """The QA eval as a user runs it: make_qa_eval_step through run_qa_eval,
+    bias cache built at the first batch. -> {'acc'}."""
+    import torch
+
+    from clover_tpu_torch.engine import make_qa_eval_step, run_qa_eval
+    from clover_tpu_torch.models import swin_bias_cache
+
+    metrics = run_qa_eval(
+        make_qa_eval_step(model), model, types.SimpleNamespace(), iter(batches),
+        bias_cache=lambda m, dims: swin_bias_cache(m.backbone, m.config.swin, dims))
+    torch.cuda.synchronize()
+    return metrics
+
+
+def qa_eval_phase(tag, cfg, n_batches, seed, dev, card, profile: bool, mask_token=False):
+    """A QA eval path (Q8O, FIB): OB videos of 8 frames, one question of OL
+    tokens each, through make_qa_eval_step + run_qa_eval with the kernels
+    and with the plain versions on one seed's weights: launches per
+    forward, finite (OB, answers) scores, per-row score cosine, the
+    accuracy of both, clips/s, peak memory. -> the kernel path's counts."""
+    import torch
+
+    from clover_tpu_torch import ops
+
+    model, plain = (m.eval() for m in qa_models(cfg))
+    batches = make_qa_batches(cfg, n_batches, OB, 1, OL, seed, cfg.num_labels, mask_token)
+    ops.reset_launch_counts()
+    metrics = drive_qa_eval(model, batches)
+    counts = launch_counts()
+    check_launches(tag, counts, QA_EVAL_LAUNCHES, n_batches, "forward")
+    torch.cuda.reset_peak_memory_stats(dev)
+    scores, cps = timed_qa_scores(model, batches, dev)
+    k_peak = peak_memory(dev)
+    check(scores.shape == (OB * n_batches, cfg.num_labels) and bool(torch.isfinite(scores).all()),
+          f"{tag} scores {tuple(scores.shape)}")
+    ops.reset_launch_counts()
+    p_metrics = drive_qa_eval(plain, batches)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p_scores, p_cps = timed_qa_scores(plain, batches, dev)
+    p_peak = peak_memory(dev)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), f"the plain {tag} path launched a kernel")
+    cos = torch.nn.functional.cosine_similarity(scores, p_scores, dim=-1).min().item()
+    gap = (scores - p_scores).abs().max().item()
+    print(f"{tag} kernel vs plain scores: min cosine {cos:.6f} (bound {COS32_MIN}), max abs gap "
+          f"{gap:.4e} (max|plain| {p_scores.abs().max().item():.4e}); accuracy kernels "
+          f"{metrics['acc']:.4f} plain {p_metrics['acc']:.4f}", flush=True)
+    check(cos >= COS32_MIN, f"{tag} kernel path disagrees with the plain path: cosine {cos:.6f}")
+    print(f"{tag} clips/s (B={OB}, {T}x{S}^2, L={OL}, {cfg.num_labels} answers, {n_batches} "
+          f"batches, forward only): kernels {cps:.2f} plain {p_cps:.2f}; peak memory kernels "
+          f"{k_peak} plain {p_peak} on {card}", flush=True)
+    if profile:
+        profile_eval_path(model, cfg, batches, dev, OB * 1e3 / cps, f"kernel {tag} eval path")
+    del model, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
+def itm_shapes(cfg, pairs, text_len):
+    """The K3 / K4 calls of an ITM score call over ``pairs`` pairs."""
+    calls = {"K1": [], "K2": [], "K3": [], "K4": [], "K6": []}
+    for extra in (text_shapes(cfg, pairs, text_len), fusion_shapes(cfg, pairs, text_len)):
+        for k, v in extra.items():
+            calls[k] += v
+    return calls
+
+
+def itm_phase(dev, card, profile: bool):
+    """ITM: K3 and K4 at a score call's shapes against their plain versions;
+    ITM_CALLS score calls of ITM_PAIRS cached-token pairs (make_itm_score_step)
+    with the kernels and with the plain versions (launches per call, the
+    probabilities' largest gap, pairs/s); then run_itm_retrieval_eval end to
+    end on both. -> (kernel results, the score calls' launch counts)."""
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.engine import (make_itm_embed_step, make_itm_score_step,
+                                         run_itm_retrieval_eval)
+    from clover_tpu_torch.models import swin_bias_cache
+
+    cfg = qa_config(task="retrieval", use_itm_head=True)
+    results = kernel_phase(cfg, dev, seed=SEED + 18, keys=("K3", "K4"),
+                           calls=itm_shapes(cfg, ITM_PAIRS, L))
+    model, plain = (m.eval() for m in qa_models(cfg))
+    fu = cfg.fusion
+    rng = np.random.default_rng(SEED + 19)
+    tokens = torch.from_numpy(rng.normal(size=(ITM_CALLS, ITM_PAIRS, fu.num_frames,
+                                               fu.spatial_tokens, fu.img_in_size))
+                              .astype(np.float32)).to(dev).bfloat16()
+    ids = torch.from_numpy(rng.integers(1000, 30000, size=(ITM_CALLS, ITM_PAIRS, L))).to(dev)
+    mask = torch.ones(ITM_PAIRS, L, dtype=torch.long, device=dev)
+
+    def score_calls(m):
+        step = make_itm_score_step(m)
+        step(tokens[0], ids[0], mask)   # an untimed warm-up call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = torch.stack([step(tokens[i], ids[i], mask) for i in range(ITM_CALLS)])
+        torch.cuda.synchronize()
+        return out, ITM_CALLS * ITM_PAIRS / (time.perf_counter() - t0)
+
+    ops.reset_launch_counts()
+    scores, pps = score_calls(model)
+    counts = launch_counts()
+    check_launches("ITM score", counts, ITM_LAUNCHES, ITM_CALLS + 1, "call")
+    ops.reset_launch_counts()
+    p_scores, p_pps = score_calls(plain)
+    check(all(fn.launches == 0 for fn in ops.KERNELS), "the plain ITM path launched a kernel")
+    check(scores.dtype == torch.float32 and scores.shape == (ITM_CALLS, ITM_PAIRS)
+          and bool(((scores >= 0) & (scores <= 1)).all()), "ITM scores are not probabilities")
+    gap = (scores - p_scores).abs().max().item()
+    print(f"ITM score ({ITM_PAIRS} pairs a call of cached ({fu.num_frames}, {fu.spatial_tokens}, "
+          f"{fu.img_in_size}) bf16 tokens, L={L}, {ITM_CALLS} calls): pairs/s kernels {pps:.2f} "
+          f"plain {p_pps:.2f}; largest gap from plain {gap:.4e} (bound {ITM_GAP_MAX}) on {card}",
+          flush=True)
+    check(gap <= ITM_GAP_MAX, f"ITM scores disagree with the plain path: {gap:.4e}")
+    if profile:
+        step = make_itm_score_step(model)
+        profile_runs([lambda i=i: step(tokens[i], ids[i], mask) for i in range(ITM_CALLS)],
+                     ITM_PAIRS * 1e3 / pps, "kernel ITM score", "call")
+
+    batches = make_batches(cfg, T, ITM_EVAL_BATCHES, SEED + 20)
+    n = ITM_EVAL_BATCHES * B
+    calls = -(-n * n // ITM_PAIRS)
+    dataset = types.SimpleNamespace(text_video_ids=[[i] for i in range(n)])
+    for m, path in ((model, "kernel"), (plain, "plain")):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        recall = run_itm_retrieval_eval(
+            make_itm_embed_step(m), make_itm_score_step(m), m, dataset, iter(batches),
+            bias_cache=lambda mm, dims: swin_bias_cache(mm.backbone, mm.config.swin, dims),
+            pair_batch=ITM_PAIRS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        # the embed step once a batch, the score step once a pair batch
+        want = {k: (ITM_EVAL_BATCHES * v + calls * ITM_LAUNCHES.get(k, 0)
+                    if m is model else 0) for k, v in ITM_EMBED_LAUNCHES.items()}
+        check_launches(f"ITM retrieval eval, {path} path", launch_counts(), want, 1, "eval")
+        check(set(recall) == {"Recall@1", "Recall@5", "Recall@10", "MR", "Recall@all"}
+              and all(np.isfinite(v) for v in recall.values()), f"ITM recall {recall}")
+        print(f"ITM retrieval eval, {path} path ({n} videos x {n} texts, every pair, {calls} "
+              f"score calls of {ITM_PAIRS}): {recall} in {seconds:.2f} s", flush=True)
+    del model, plain, tokens
+    torch.cuda.empty_cache()
+    return results, counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1716,8 +2051,9 @@ def main(argv=None) -> int:
                     help="trace the kernel path's 8- and 32-frame eval forwards, the "
                          "forwards of each phase-5c path (E8H, E8S, E8P, E32L) and each "
                          "path's 12- and 32-frame finetune steps and pretrain steps (P32 and "
-                         "P8E too), F12R's steps and E8F's forwards with torch.profiler and "
-                         "print the device time by kernel family")
+                         "P8E too), F12R's steps, E8F's forwards, Q8M's steps, Q8O's and FIB's "
+                         "forwards and the ITM score calls with torch.profiler and print the "
+                         "device time by kernel family")
     profile = ap.parse_args(argv).profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
@@ -1853,6 +2189,19 @@ def main(argv=None) -> int:
     e8f_counts = spatial_path_phase("E8F", weights, dev, card, profile, E8F)
     del weights
 
+    # slice 4: the QA / MC / FIB finetune and the ITM rerank, through the fusion tower
+    print(card_line(), flush=True)
+    q8m, q8m_counts = q8m_phase(dev, card, profile)
+    q8o_cfg = qa_config(task="video_qa", answer_cls=True, qa_head="oe", num_labels=O_LABELS)
+    q8o = kernel_phase(q8o_cfg, dev, T, SEED + 21, keys=("K1", "K2", "K3", "K4"), clips=OB,
+                       text_len=OL)
+    q8o_counts = qa_eval_phase("Q8O (QA-OE eval)", q8o_cfg, O_BATCHES, SEED + 22, dev, card,
+                               profile)
+    fib_cfg = qa_config(task="FIB", answer_mask=True, qa_head="oe", num_labels=FIB_LABELS)
+    fib_counts = qa_eval_phase("FIB (answer_mask eval)", fib_cfg, 1, SEED + 23, dev, card,
+                               profile, mask_token=True)
+    itm, itm_counts = itm_phase(dev, card, profile)
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -1912,6 +2261,15 @@ def main(argv=None) -> int:
     rows += [(k, e8f if k in ("K6", "K4") else results, e8f_counts,
               f"E8F (fused_block), ms per forward, launches over {E8F[4]} forwards", sources)
              for k in ("K6", "K2", "K3", "K4")]
+    # slice 4: Q8O and FIB share their call shapes (64 videos, L=40)
+    rows += [(k, q8o, n, f"{path}, ms per forward, launches over {runs} forwards", sources)
+             for path, n, runs in (("Q8O (QA-OE eval)", q8o_counts, O_BATCHES),
+                                   ("FIB (answer_mask eval)", fib_counts, 1))
+             for k in ("K1", "K2", "K3", "K4")]
+    rows += [(k, q8m, q8m_counts, f"Q8M (QA-MC train), ms per step, launches over "
+              f"{TRAIN_STEPS} steps", sources) for k in ("K1", "K5", "K2S")]
+    rows += [(k, itm, itm_counts, f"ITM (rerank score), ms per call of {ITM_PAIRS} pairs, "
+              f"launches over {ITM_CALLS + 1} calls", sources) for k in ("K3", "K4")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],

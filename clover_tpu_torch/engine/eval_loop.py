@@ -1,27 +1,55 @@
-"""Retrieval evaluation loop (port of ``clover_tpu/engine/eval_loop.py::
-run_retrieval_eval``), single process, host space-to-depth or RGB batches.
+"""Evaluation loops (port of ``clover_tpu/engine/eval_loop.py``), single
+process (the JAX ``_host_gather`` is the identity there), host
+space-to-depth or RGB batches:
 
-R@K comes from the port's own numpy copy of the metrics
+- ``run_retrieval_eval``: dual-tower R@K;
+- ``run_itm_retrieval_eval``: the full-fusion ITM text -> video recall on
+  cached Swin tokens, optionally reranking each text's ``top_k`` tower
+  candidates;
+- ``run_mc_retrieval_eval``: multiple choice by tower similarity;
+- ``run_zeroshot_action_eval``: the nearest class-name embedding;
+- ``run_qa_eval``: argmax accuracy over the QA scores.
+
+Each loop drops the sampler's padding duplicates by dataset index and sorts
+by it; the metrics are the port's own numpy copies
 (``clover_tpu_torch/evaluation/metrics.py``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
-from clover_tpu_torch.evaluation.metrics import retrieval_recall, retrieval_recall_varied
+from clover_tpu_torch.evaluation.metrics import (
+    itm_t2v_recall,
+    l2_normalize,
+    multiple_choice_retrieval_acc,
+    qa_accuracy,
+    retrieval_recall,
+    retrieval_recall_varied,
+    zeroshot_action_recognition_acc,
+)
 from clover_tpu_torch.models.swin3d import embed_dims
 from clover_tpu_torch.ops.preprocess import eval_preprocess
 
 
+def _dedup_order(indices: np.ndarray) -> np.ndarray:
+    """The rows that drop sampler-padding duplicates, in index order."""
+    _, first = np.unique(indices, return_index=True)
+    return first[np.argsort(indices[first])]
+
+
 def _dedup_sort(indices: np.ndarray, *arrays):
     """Drop sampler-padding duplicates, return arrays sorted by index."""
-    _, first = np.unique(indices, return_index=True)
-    order = first[np.argsort(indices[first])]
+    order = _dedup_order(indices)
     return [a[order] for a in arrays]
+
+
+def _first_of_each(vids: np.ndarray) -> np.ndarray:
+    """The first row of each video, in row order."""
+    return np.sort(np.unique(vids, return_index=True)[1])
 
 
 def _prep_batch(batch, model: torch.nn.Module, bias_cache, out_size: int, dtype, device):
@@ -45,6 +73,38 @@ def _prep_batch(batch, model: torch.nn.Module, bias_cache, out_size: int, dtype,
     return imgs.reshape((-1, raw.shape[1]) + imgs.shape[1:]), bias_cache
 
 
+def _run_steps(eval_step: Callable, model: torch.nn.Module, loader_iter, bias_cache,
+               out_size: int, dtype, keys=()):
+    """Each batch through ``eval_step(imgs, token_ids, input_mask,
+    bias_cache)`` on the model's device. -> (per batch: the step's output,
+    the batch's ``index`` and its ``keys`` as numpy)."""
+    device = next(model.parameters()).device
+    for batch in loader_iter:
+        imgs, bias_cache = _prep_batch(batch, model, bias_cache, out_size, dtype, device)
+        out = eval_step(imgs, torch.as_tensor(batch["token_ids"]).to(device),
+                        torch.as_tensor(batch["input_mask"]).to(device), bias_cache)
+        yield out, np.asarray(batch["index"]), [np.asarray(batch[k]) for k in keys]
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.float().cpu().numpy()
+
+
+def _embeddings(eval_step: Callable, model: torch.nn.Module, loader_iter, bias_cache,
+                out_size: int, dtype):
+    """The dual-tower embeddings of every entry and its ``video_index``,
+    deduplicated and in index order. -> (v, t, vids) numpy."""
+    vs, ts, idx, vids = [], [], [], []
+    for (v, t), index, (vid,) in _run_steps(eval_step, model, loader_iter, bias_cache,
+                                            out_size, dtype, ("video_index",)):
+        vs.append(_host(v))
+        ts.append(_host(t))
+        idx.append(index)
+        vids.append(vid)
+    return _dedup_sort(np.concatenate(idx), np.concatenate(vs), np.concatenate(ts),
+                       np.concatenate(vids))
+
+
 def run_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
                        bias_cache=None, out_size: int = 224,
                        dtype: torch.dtype = torch.float32) -> Dict[str, float]:
@@ -61,25 +121,112 @@ def run_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loa
     built at the first batch with the patch embed's token dims.
     ``dataset.text_video_ids`` lists each video's captions.
     """
-    device = next(model.parameters()).device
-    v_list: List[np.ndarray] = []
-    t_list: List[np.ndarray] = []
-    idx_list: List[np.ndarray] = []
-    vid_list: List[np.ndarray] = []
-    for batch in loader_iter:
-        imgs, bias_cache = _prep_batch(batch, model, bias_cache, out_size, dtype, device)
-        v, t = eval_step(imgs, torch.as_tensor(batch["token_ids"]).to(device),
-                         torch.as_tensor(batch["input_mask"]).to(device), bias_cache)
-        v_list.append(v.float().cpu().numpy())
-        t_list.append(t.float().cpu().numpy())
-        idx_list.append(np.asarray(batch["index"]))
-        vid_list.append(np.asarray(batch["video_index"]))
-
-    v, t, vids = _dedup_sort(np.concatenate(idx_list), np.concatenate(v_list),
-                             np.concatenate(t_list), np.concatenate(vid_list))
+    v, t, vids = _embeddings(eval_step, model, loader_iter, bias_cache, out_size, dtype)
     captions_per_video = [len(ids) for ids in dataset.text_video_ids]
     if all(c == 1 for c in captions_per_video):
         return retrieval_recall(video_embd=v, text_embd=t)
     # varied: one video embedding per video (first entry), every caption a query
-    _, first = np.unique(vids, return_index=True)
-    return retrieval_recall_varied(v[np.sort(first)], t, dataset.text_video_ids)
+    return retrieval_recall_varied(v[_first_of_each(vids)], t, dataset.text_video_ids)
+
+
+def run_itm_retrieval_eval(embed_step: Callable, score_step: Callable, model: torch.nn.Module,
+                           dataset, loader_iter, bias_cache=None, out_size: int = 224,
+                           dtype: torch.dtype = torch.float32, top_k: Optional[int] = None,
+                           pair_batch: int = 32) -> Dict[str, float]:
+    """Full-fusion ITM text -> video retrieval (the reference's non-separate
+    test: multimodal_transformer_pretrain.py:220-225 and
+    recall_for_itm_t2v_retrieval, video_dataset.py:206-238): every (text,
+    video) pair is scored by the fusion tower's ITM head and each text ranks
+    the videos by it. The Swin tokens are computed once a video
+    (``embed_step(imgs, token_ids, input_mask, bias_cache) -> (tokens (B, T,
+    S, C), v_emb, t_emb)``, ``make_itm_embed_step``) and kept on the
+    device; only the text and fusion towers run per pair
+    (``score_step(tokens, token_ids, input_mask) -> (P,)``,
+    ``make_itm_score_step``), ``pair_batch`` pairs a call.
+
+    ``top_k`` scores only each text's top-K videos by tower similarity (the
+    retrieve-and-rerank protocol), the others ranking below every scored
+    pair; None scores every pair (the reference). Batches as
+    ``run_retrieval_eval``'s, one caption an entry."""
+    device = next(model.parameters()).device
+    toks, vs, ts, ids, masks, idx, vids = [], [], [], [], [], [], []
+    for (tokens, v, t), index, (tok, mask, vid) in _run_steps(
+            embed_step, model, loader_iter, bias_cache, out_size, dtype,
+            ("token_ids", "input_mask", "video_index")):
+        toks.append(tokens)
+        vs.append(_host(v))
+        ts.append(_host(t))
+        ids.append(tok.reshape(len(index), -1))
+        masks.append(mask.reshape(len(index), -1))
+        idx.append(index)
+        vids.append(vid)
+    order = _dedup_order(np.concatenate(idx))
+    v, t, ids, masks, vids = (np.concatenate(a)[order] for a in (vs, ts, ids, masks, vids))
+
+    # one token set and tower embedding a video
+    first = _first_of_each(vids)
+    video_tokens = torch.cat(toks)[torch.as_tensor(order[first], device=device)]
+    video_emb = v[first]
+    n_text, n_video = len(t), len(first)
+
+    # the candidates by tower similarity
+    sims = l2_normalize(t.astype(np.float64)) @ l2_normalize(video_emb.astype(np.float64)).T
+    if top_k is None or top_k >= n_video:
+        cand = np.broadcast_to(np.arange(n_video), (n_text, n_video))
+    else:
+        cand = np.argsort(-sims, axis=1)[:, :top_k]
+
+    # the (text, candidate video) pairs through the fusion tower in batches
+    pairs_t = np.repeat(np.arange(n_text), cand.shape[1])
+    pairs_v = cand.reshape(-1)
+    ids_dev, masks_dev = (torch.as_tensor(a).to(device) for a in (ids, masks))
+    outs = []
+    for start in range(0, len(pairs_t), pair_batch):
+        ti = torch.as_tensor(pairs_t[start:start + pair_batch], device=device)
+        vi = torch.as_tensor(pairs_v[start:start + pair_batch], device=device)
+        outs.append(score_step(video_tokens[vi], ids_dev[ti], masks_dev[ti]))
+    scores = np.full((n_text, n_video), -np.inf, np.float32)
+    scores[pairs_t, pairs_v] = _host(torch.cat(outs))
+    return itm_t2v_recall(scores, vids)
+
+
+def run_mc_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
+                          bias_cache=None, out_size: int = 224,
+                          dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+    """Multiple choice as retrieval: each video's candidates (its entries'
+    captions, ``video_index`` grouping them) scored by tower similarity
+    against ``dataset.labels`` (``eval_step`` as ``run_retrieval_eval``'s)."""
+    v, t, vids = _embeddings(eval_step, model, loader_iter, bias_cache, out_size, dtype)
+    return multiple_choice_retrieval_acc(v[_first_of_each(vids)], t, dataset.labels)
+
+
+def run_zeroshot_action_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
+                             class_text_embd: np.ndarray, bias_cache=None, out_size: int = 224,
+                             dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+    """Zero-shot action recognition (reference UCF101VideoDataset ->
+    recall_for_zeroshot_action_recognition, video_dataset.py:443-513): each
+    video's embedding against the class-name embeddings ``class_text_embd``;
+    ``label`` in the batches, 1-indexed."""
+    vs, labels, idx = [], [], []
+    for (v, _), index, (label,) in _run_steps(eval_step, model, loader_iter, bias_cache,
+                                              out_size, dtype, ("label",)):
+        vs.append(_host(v))
+        labels.append(label)
+        idx.append(index)
+    v, labels = _dedup_sort(np.concatenate(idx), np.concatenate(vs), np.concatenate(labels))
+    return zeroshot_action_recognition_acc(v, class_text_embd, labels)
+
+
+def run_qa_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
+                bias_cache=None, out_size: int = 224,
+                dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+    """QA / FIB eval: argmax accuracy of ``eval_step``'s (B, num_choices)
+    scores (``make_qa_eval_step``) against each batch's ``label``."""
+    scores, labels, idx = [], [], []
+    for s, index, (label,) in _run_steps(eval_step, model, loader_iter, bias_cache, out_size,
+                                         dtype, ("label",)):
+        scores.append(_host(s))
+        labels.append(label)
+        idx.append(index)
+    s, y = _dedup_sort(np.concatenate(idx), np.concatenate(scores), np.concatenate(labels))
+    return qa_accuracy(s, y)

@@ -1,11 +1,13 @@
 """Train and eval step factories (port of ``clover_tpu/engine/steps.py``).
 
-A train step runs the forward in ``train()`` mode with dropout drawn from a
-generator derived from (seed, step) -- the counterpart of
-``jax.random.fold_in(rng, state.step)`` -- the loss, the backward, one
-global gradient norm that serves both the clip and the ``grad_norm``
-metric, and the AdamW update. Parameters and optimizer state are fp32; the
-model computes in its own dtype.
+A train step (retrieval, pretrain, QA) runs the forward in ``train()``
+mode with dropout drawn from a generator derived from (seed, step) -- the
+counterpart of ``jax.random.fold_in(rng, state.step)`` -- the loss, the
+backward, one global gradient norm that serves both the clip and the
+``grad_norm`` metric, and the AdamW update. Parameters and optimizer state
+are fp32; the model computes in its own dtype. The eval steps run the model's
+``forward_test`` (retrieval embeddings or QA scores) and the ITM eval's two
+halves, ``encode_visual`` and ``itm_pair_score``, under inference mode.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import numpy as np
 import torch
 
 from clover_tpu_torch.engine.train_state import TrainState
-from clover_tpu_torch.losses import PretrainLossConfig, pretrain_losses, retrieval_loss, total_loss
+from clover_tpu_torch.losses import (PretrainLossConfig, pretrain_losses, qa_loss, retrieval_loss,
+                                     total_loss)
 
 
 def ema_momentum_schedule(kind: str = "constant", base: float = 0.9998,
@@ -109,6 +112,16 @@ def make_retrieval_train_step(model, temperature: float = 0.05, cos_sim: bool = 
                        ema_momentum, grad_clip_norm)
 
 
+def make_qa_train_step(model, ema_momentum=None,
+                       grad_clip_norm: Optional[float] = None) -> Callable:
+    """QA / FIB finetune step: ``step(state, batch, generator) -> (state,
+    metrics)`` with metrics ``qa_loss`` (CE of ``forward_train``'s (B,
+    num_choices) logits against ``batch["label"]``), ``loss`` and
+    ``grad_norm``; otherwise as ``make_retrieval_train_step``."""
+    return _train_step(model, lambda out, batch: qa_loss(out, batch["label"]), ema_momentum,
+                       grad_clip_norm)
+
+
 def make_embed_eval_step(model) -> Callable:
     """Dual-tower retrieval-eval step:
     ``step(imgs, token_ids, input_mask, bias_cache=None) -> (v_emb, t_emb)``.
@@ -119,5 +132,39 @@ def make_embed_eval_step(model) -> Callable:
     def step(imgs, token_ids, input_mask, bias_cache=None):
         with torch.inference_mode():
             return model.forward_test(imgs, token_ids, input_mask, bias_cache)
+
+    return step
+
+
+def make_qa_eval_step(model) -> Callable:
+    """QA / FIB eval step: ``step(imgs, token_ids, input_mask,
+    bias_cache=None) -> (B, num_choices)`` scores (``forward_test``)."""
+    return make_embed_eval_step(model)
+
+
+def make_itm_embed_step(model) -> Callable:
+    """The ITM retrieval eval's per-batch step: ``step(imgs, token_ids,
+    input_mask, bias_cache=None) -> (visual tokens (B, T, S, C), v_emb,
+    t_emb)``, the Swin tokens ``encode_visual`` caches and the dual-tower
+    embeddings, from one Swin pass (the JAX step's two calls of the same
+    backbone on the same clips)."""
+
+    def step(imgs, token_ids, input_mask, bias_cache=None):
+        with torch.inference_mode():
+            tokens = model.encode_visual(imgs, token_ids.shape[0], bias_cache)
+            # forward_vision pools over (T, H, W); (T, S, 1) holds the same tokens
+            v = model.ssl_head.forward_vision(tokens[:, :, :, None])
+            return tokens, v, model.forward_text(token_ids, input_mask)
+
+    return step
+
+
+def make_itm_score_step(model) -> Callable:
+    """``step(visual_tokens, token_ids, input_mask) -> (B,)`` fp32 fused
+    match probabilities of aligned (cached video tokens, text) pairs."""
+
+    def step(visual_tokens, token_ids, input_mask):
+        with torch.inference_mode():
+            return model.itm_pair_score(visual_tokens, token_ids, input_mask)
 
     return step

@@ -1,14 +1,71 @@
-"""Masked-LM losses (port of ``clover_tpu/losses/classification.py``, the
-pretrain step's part; reference focal_loss.py:49-72 and
-multimodal_transformer_pretrain.py:136-142). The reference selects the
-masked rows by boolean indexing; here, as in the JAX package, a masked mean
-over all rows gives the same value."""
+"""The cross-entropy family and the focal losses (port of
+``clover_tpu/losses/classification.py``), all in fp32:
+
+- ``cross_entropy`` with hard or soft labels and ``class_weight``, and
+  ``bce_with_logits`` with ``pos_weight`` (reference
+  cross_entropy_loss.py:9-138);
+- ``label_smoothing_cross_entropy`` (:139-220);
+- ``softmax_focal_multiclass`` and the masked-LM losses (focal_loss.py:49-72,
+  multimodal_transformer_pretrain.py:136-142). The reference selects the
+  masked rows by boolean indexing; here, as in the JAX package, a masked
+  mean over all rows gives the same value.
+"""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 IGNORE_INDEX = -100
+
+
+def _nll(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return -logp.gather(-1, labels[..., None].long())[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  class_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean CE of logits (N, C) against int labels (N,) or soft labels (N, C);
+    with ``class_weight`` (C,) hard labels take the weighted mean
+    sum(w[y] nll) / sum(w[y]), soft labels weight each class's term."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    if labels.ndim == logits.ndim:   # soft labels
+        loss = -(labels * logp)
+        if class_weight is not None:
+            loss = loss * class_weight
+        return loss.sum(dim=-1).mean()
+    nll = _nll(logp, labels)
+    if class_weight is not None:
+        w = class_weight[labels.long()]
+        return (nll * w).sum() / w.sum()
+    return nll.mean()
+
+
+def bce_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                    pos_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean binary CE on logits: -(pos_weight y log s(x) + (1 - y) log s(-x))."""
+    logits, labels = logits.float(), labels.float()
+    pos = -labels * F.logsigmoid(logits)
+    if pos_weight is not None:
+        pos = pos * pos_weight
+    return (pos - (1.0 - labels) * F.logsigmoid(-logits)).mean()
+
+
+def label_smoothing_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                  epsilon: float = 0.1) -> torch.Tensor:
+    """CE against one_hot(labels) (1 - epsilon) + epsilon / C."""
+    n_classes = logits.shape[-1]
+    onehot = F.one_hot(labels.long(), n_classes).float()
+    return cross_entropy(logits, onehot * (1.0 - epsilon) + epsilon / n_classes)
+
+
+def softmax_focal_multiclass(logits: torch.Tensor, labels: torch.Tensor,
+                             gamma: float = 2.0) -> torch.Tensor:
+    """(1 - p_t)^gamma CE, mean-reduced (reference focal_loss.py:60-72)."""
+    ce = _nll(torch.log_softmax(logits.float(), dim=-1), labels)
+    return ((1.0 - torch.exp(-ce)) ** gamma * ce).mean()
 
 
 def masked_lm_focal_loss(logits: torch.Tensor, mlm_labels: torch.Tensor,
@@ -18,8 +75,7 @@ def masked_lm_focal_loss(logits: torch.Tensor, mlm_labels: torch.Tensor,
     masked."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     valid = mlm_labels != IGNORE_INDEX
-    safe = torch.where(valid, mlm_labels, torch.zeros_like(mlm_labels))
-    ce = -logp.gather(-1, safe[..., None].long())[..., 0]
+    ce = _nll(logp, torch.where(valid, mlm_labels, torch.zeros_like(mlm_labels)))
     focal = (1.0 - torch.exp(-ce)) ** gamma * ce
     n_valid = torch.clamp(valid.sum(), min=1)
     return torch.where(valid, focal, torch.zeros_like(focal)).sum() / n_valid

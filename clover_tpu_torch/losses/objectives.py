@@ -1,11 +1,12 @@
-"""Task objectives (port of ``clover_tpu/losses/objectives.py``, pretrain
-and retrieval finetune): model outputs -> {loss name: scalar}, with the
-reference's key names; ``total_loss`` sums every entry (reference
-recognizers/base.py ``_parse_losses``).
+"""Task objectives (port of ``clover_tpu/losses/objectives.py``): model
+outputs -> {loss name: scalar}, with the reference's key names;
+``total_loss`` sums every entry (reference recognizers/base.py
+``_parse_losses``).
 
 - pretrain: mlm_loss + nce_loss + rank_t_tm_loss + v_nce_loss +
   rank_v_vm_loss (multimodal_transformer_pretrain.py:127-169);
-- finetune retrieval: retrieval_nce_loss.
+- finetune retrieval: retrieval_nce_loss;
+- finetune QA / FIB: qa_loss (multimodal_transformer_finetune.py:114-123).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from clover_tpu_torch.losses.classification import masked_lm_focal_loss
+from clover_tpu_torch.losses.classification import cross_entropy, masked_lm_focal_loss
 from clover_tpu_torch.losses.contrastive import exclusive_nce_with_ranking, norm_softmax_loss
 
 
@@ -54,6 +55,11 @@ def retrieval_loss(visual_emb: torch.Tensor, text_emb: torch.Tensor,
                    temperature: float = 0.05, cos_sim: bool = True) -> Dict[str, torch.Tensor]:
     return {"retrieval_nce_loss": norm_softmax_loss(visual_emb, text_emb,
                                                     temperature=temperature, cos_sim=cos_sim)}
+
+
+def qa_loss(logits: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """CE of the (B, num_choices) scores against the (B[, 1]) answer index."""
+    return {"qa_loss": cross_entropy(logits, labels.reshape(-1))}
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -5,7 +5,15 @@
   projector, text pooled from CLS or by mean or max over the words;
 - ``NCEHeadForVision`` (ssl_head.py:142-221) and ``NCEHeadForText``
   (:224-297): the pretrain reconstruction heads;
-- ``MLMHead`` (mlm_itm_head.py:10-52): transform + vocabulary decoder.
+- ``MLMHead`` (mlm_itm_head.py:10-52): transform + vocabulary decoder;
+- ``ITMHead`` (mlm_itm_head.py:55-97): the 2-way image-text-match head;
+- ``QAMCHead`` (qa_head.py:7-39) and ``QAOEHead`` (:42-87): the
+  multiple-choice scorer and the open-ended answer classifier. Their
+  LayerNorm (eps 1e-5) is plain: it is not a kernel site in the JAX
+  package either (``LayerNormAuto`` without ``fwd_only``).
+
+The projection heads draw their weights xavier-uniform (``init_params``);
+dropout draws from the ``generator`` passed to ``forward`` in training.
 
 ``NCEHeadForVision`` keeps the JAX package's documented fix
 (``clover_tpu/models/heads.py:12-17``): the reference takes the token mean
@@ -22,9 +30,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from clover_tpu_torch.models.bert import BertConfig, BertPredictionTransform
-from clover_tpu_torch.models.layers import Linear, ProjectorNorm, dropout
+from clover_tpu_torch.models.layers import LayerNorm, Linear, ProjectorNorm, dropout
 
 SEP_TOKEN_ID = 102
+MASK_TOKEN_ID = 103
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
@@ -139,3 +148,51 @@ class MLMHead(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.transform(hidden_states))
+
+
+class ITMHead(nn.Module):
+    """2-way image-text-match head: dropout, fc1, tanh, fc2 -> (..., 2)."""
+
+    def __init__(self, hidden_dim: int = 768, dropout_ratio: float = 0.1):
+        super().__init__()
+        self.fc1 = Linear(hidden_dim, hidden_dim, init="xavier")
+        self.fc2 = Linear(hidden_dim, 2, init="xavier")
+        self.drop = dropout_ratio
+
+    def forward(self, cls_feature: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(cls_feature, self.drop, generator, self.training)
+        return self.fc2(torch.tanh(self.fc1(x)))
+
+
+class _QAHead(nn.Module):
+    """dropout, fc1 to ``width``, LayerNorm, GELU, fc2 to ``out``."""
+
+    def __init__(self, in_features: int, width: int, out: int, dropout_ratio: float):
+        super().__init__()
+        self.fc1 = Linear(in_features, width, init="xavier")
+        self.norm = LayerNorm(width)
+        self.fc2 = Linear(width, out, init="xavier")
+        self.drop = dropout_ratio
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = dropout(x, self.drop, generator, self.training)
+        return self.fc2(_gelu(self.norm(self.fc1(x))))
+
+
+class QAMCHead(_QAHead):
+    """Multiple-choice scorer: (..., in_features) -> (..., 1) through a
+    256-wide hidden layer; dropout 0.1."""
+
+    def __init__(self, in_features: int = 768, dropout_ratio: float = 0.1):
+        super().__init__(in_features, 256, 1, dropout_ratio)
+
+
+class QAOEHead(_QAHead):
+    """Open-ended answer classifier: (..., in_features) -> (..., num_labels)
+    through a hidden_dim / 2 wide layer; dropout 0.5."""
+
+    def __init__(self, in_features: int = 768, hidden_dim: int = 768, num_labels: int = 1000,
+                 dropout_ratio: float = 0.5):
+        super().__init__(in_features, hidden_dim // 2, num_labels, dropout_ratio)
