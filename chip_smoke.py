@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of clover_tpu_torch's retrieval-eval, retrieval-finetune,
-pretrain, QA / FIB and ITM paths on one CUDA card.
+pretrain, QA / FIB and ITM paths and its train / test entry points on one
+CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -119,6 +120,23 @@ Phases, in order; any failure raises and exits non-zero:
    the probabilities' largest gap from plain, pairs/s), then
    run_itm_retrieval_eval end to end over 64 videos x 64 texts on both
    paths (launches, both recall dicts);
+8m. TR8, the config-driven trainer and evaluator through the port's entry
+   points, in this process: clover_tpu_torch.tools.train on
+   configs/exp/rehearsal_retrieval_fullsize.py (Swin-B + BERT-base, 224^2, 8
+   frames, the synthetic MSRVTT-shaped split, bf16; 64 train videos in
+   batches of 16, 64 val videos in batches of 32) for 2 epochs: exact
+   launches (8 steps of K1 / K5 / K2S 24, 4 eval forwards of K1 24, K2 24,
+   K3 12, K4 42), finite losses, the eval lines, best.json and the meta
+   files; the latest checkpoint restored into a fresh model and optimizer,
+   bitwise the trained state, and its eval equal to the trainer's; a
+   --resume to 3 epochs (from epoch 2 to step 12); clover_tpu_torch.tools.test
+   on the best step (metrics equal to the trainer's eval line); three
+   train-loader epochs through one prefetch_to_device call, its pinned
+   slots and the recycled host buffers both reused (bitwise the synchronous
+   copies); train clips/s over epoch 2, eval
+   clips/s, the checkpoints' seconds and bytes, the per-step metric sync's
+   cost, peak memory; the temporary work dir removed whether it passes or
+   not;
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -149,6 +167,7 @@ Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -288,6 +307,23 @@ QA_EVAL_LAUNCHES = {"K1": 24, "K2": 24, "K3": 15, "K4": 46}
 ITM_PAIRS, ITM_CALLS, ITM_EVAL_BATCHES, ITM_GAP_MAX = 128, 8, 2, 2e-2
 ITM_LAUNCHES = {"K3": 15, "K4": 17}
 ITM_EMBED_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
+# TR8 (phase 8m): the config-driven trainer and evaluator through the port's
+# entry points (clover_tpu_torch.tools.train / .test) on
+# configs/exp/rehearsal_retrieval_fullsize.py (Swin-B + BERT-base, 224^2, 8
+# frames, L=30, the synthetic MSRVTT-shaped split, the raw-clip 'conv' embed
+# from uint8 frames): 64 train videos in batches of 16 (4 steps an epoch, the
+# pretrain and Q8M steps' 16-clip 8-frame Swin shapes), 64 val videos in
+# batches of 32 (2 forwards an eval, eval8's shapes), bf16, 2 epochs, then a
+# resume to 3. A step launches K1 / K5 / K2S 24, an eval forward K1 24, K2 24,
+# K3 12, K4 42 (the text tower's 12 post-LN FFNs and 42 LayerNorms)
+TR8_CONFIG = os.path.join("configs", "exp", "rehearsal_retrieval_fullsize.py")
+TR8_OPTIONS = ("model.dtype=bfloat16", "total_epochs=2", "log_interval=1",
+               "checkpoint.max_to_keep=1", "data.train.n_videos=64",
+               "data.train_loader.batch_size=16", "data.val.n_videos=64",
+               "data.val_loader.batch_size=32")
+TR8_CLIPS, TR8_STEPS_PER_EPOCH, TR8_FORWARDS_PER_EVAL = 16, 4, 2
+TR8_STEP_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24}
+TR8_FORWARD_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2041,6 +2077,245 @@ def itm_phase(dev, card, profile: bool):
     return results, counts
 
 
+def tr8_launches(epochs: int):
+    """The kernel launches of ``epochs`` epochs of TR8: 4 steps and one
+    eval of 2 forwards each."""
+    steps, forwards = epochs * TR8_STEPS_PER_EPOCH, epochs * TR8_FORWARDS_PER_EVAL
+    return {k: steps * TR8_STEP_LAUNCHES.get(k, 0) + forwards * TR8_FORWARD_LAUNCHES.get(k, 0)
+            for k in set(TR8_STEP_LAUNCHES) | set(TR8_FORWARD_LAUNCHES)}
+
+
+def read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def tr8_lines(work_dir):
+    """metrics.jsonl's train and eval lines (the eval lines by step)."""
+    with open(os.path.join(work_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return ([r for r in rows if "loss" in r],
+            {r["step"]: r for r in rows if "Recall@1" in r})
+
+
+def state_tensors(state):
+    """Every tensor of a train state (parameters, buffers, AdamW state, EMA)."""
+    out = {"param " + n: p.detach() for n, p in state.model.named_parameters()}
+    out.update({"buffer " + n: b for n, b in state.model.named_buffers()})
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"adamw {i} {k}": v for k, v in st.items()})
+    out.update({"ema " + n: e for n, e in (state.ema_params or {}).items()})
+    return out
+
+
+def tr8_phase(dev, card):
+    """TR8: the config-driven trainer and evaluator at full width through
+    the port's entry points, in this process, in a temporary work dir that is
+    removed at the end whether the phase passes or not. The train entry for
+    2 epochs (exact launches, metrics.jsonl, best.json and the meta files);
+    the latest checkpoint restored into a fresh model and optimizer (bitwise
+    the trained state); the train entry again with --resume to 3 epochs (it
+    starts at epoch 2 and ends at step 12); the test entry on the best step
+    (its metrics equal the trainer's eval line); three train-loader epochs
+    through one prefetch_to_device call, its pinned slots and the recycled
+    host buffers both reused (bitwise the synchronous copies); the per-step metric sync's cost on a staged batch.
+    -> the first run's launch counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.builder import build_dataset, build_loader, build_model
+    from clover_tpu_torch.config import load_config, parse_cfg_options
+    from clover_tpu_torch.data.loader import DataLoader, prefetch_to_device
+    from clover_tpu_torch.engine import CheckpointManager, to_model_batch
+    from clover_tpu_torch.tools import test as test_entry
+    from clover_tpu_torch.tools import train as train_entry
+    from clover_tpu_torch.utils.logging import get_logger
+
+    # the entries log their parameter table and every step at INFO: kept in
+    # the work dir's metrics.jsonl, summarised here
+    logger = get_logger()
+    level = logger.level
+    logger.setLevel("WARNING")
+    config = os.path.join(os.path.dirname(os.path.abspath(__file__)), TR8_CONFIG)
+    options = ["--cfg-options", *TR8_OPTIONS]
+    cfg = load_config(config, overrides=parse_cfg_options(list(TR8_OPTIONS)))
+    work = tempfile.mkdtemp(prefix="clover_tr8_")
+    ckpt = os.path.join(work, "checkpoints")
+    parts = {}
+    t_phase = time.perf_counter()
+    try:
+        # 1. two epochs through the train entry
+        ops.reset_launch_counts()
+        torch.empty(0, device=dev)   # the allocator up, so that its peak can be reset
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        trainer = train_entry.main([config, "--work-dir", work, *options])
+        torch.cuda.synchronize()
+        parts["train entry, 2 epochs"] = time.perf_counter() - t0
+        counts = launch_counts()
+        peak = peak_memory(dev)
+        check_launches("TR8 train entry (8 steps, 2 evals of 2 forwards)", counts,
+                       tr8_launches(2), 1, "run")
+        train, evals = tr8_lines(work)
+        check(len(train) == 2 * TR8_STEPS_PER_EPOCH
+              and [r["step"] for r in train] == list(range(1, 9))
+              and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in train),
+              f"TR8 train lines {train}")
+        check(sorted(evals) == [4, 8] and all(
+            {"Recall@1", "Recall@5", "Recall@10", "Recall@all"} <= set(r) for r in evals.values()),
+            f"TR8 eval lines {evals}")
+        mgr = CheckpointManager(ckpt)
+        best = read_json(os.path.join(ckpt, "best.json"))
+        kept = mgr.all_steps()
+        check(kept[-1] == 8 and best["step"] in kept and all(
+            os.path.exists(os.path.join(ckpt, f"meta_{st:010d}.json")) for st in kept),
+            f"TR8 checkpoints {kept}, best {best}")
+        saves = trainer.ckpt.saves
+        for r in train:
+            print(f"TR8 step {r['step']} (epoch {int(r['epoch'])}): loss {r['loss']:.4f} "
+                  f"grad_norm {r['grad_norm']:.4f} steps/s {r['steps_per_sec']:.4f}")
+        shown = {st: {k: v for k, v in r.items() if k != "time"} for st, r in evals.items()}
+        print(f"TR8 train entry: {len(train)} steps, evals {shown}; checkpoints kept {kept}, "
+              f"best {best}; peak memory {peak} on {card}", flush=True)
+        epoch2 = [TR8_CLIPS * r["steps_per_sec"] for r in train if r["epoch"] == 1]
+        print(f"TR8 train clips/s over epoch 2 (logged steps_per_sec x {TR8_CLIPS}; the first "
+              f"step's time holds epoch 1's eval and checkpoint saves): "
+              f"{[round(c, 2) for c in epoch2]}, steps 2-4 mean "
+              f"{np.mean(epoch2[1:]):.2f} on {card}", flush=True)
+
+        # 2. the latest checkpoint into a freshly built model and optimizer
+        t0 = time.perf_counter()
+        model, _ = build_model(cfg.model, device=dev)
+        fresh = train_entry.make_train_state(cfg, model, TR8_STEPS_PER_EPOCH)
+        check(mgr.restore(fresh) is fresh, "TR8: no checkpoint to restore")
+        torch.cuda.synchronize()
+        parts["restore"] = time.perf_counter() - t0
+        got, want = state_tensors(fresh), state_tensors(trainer.state)
+        check(got.keys() == want.keys() and fresh.step == trainer.state.step == 8,
+              f"TR8 restore: step {fresh.step}, {len(got)} of {len(want)} tensors")
+        differ = [k for k in want if not (got[k].dtype == want[k].dtype
+                                          and torch.equal(got[k], want[k]))]
+        check(not differ, f"TR8 restore differs from the trained state: {differ[:5]}")
+        print(f"TR8 restore: step 8, {len(want)} tensors bitwise the trained state "
+              f"({sum(1 for k in want if k.startswith('adamw'))} AdamW entries) in "
+              f"{parts['restore']:.2f} s", flush=True)
+        # the eval on the restored weights, timed: clips/s of one eval call
+        val = build_dataset(cfg.data.val, None)
+        eval_fn = train_entry.build_eval_fn(cfg, model, val, build_loader(
+            val, cfg.data.val_loader, test=True), cfg.img_size)
+        model.eval()
+        eval_fn(model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored_metrics = eval_fn(model)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        want_eval = {k: v for k, v in evals[8].items() if k not in ("step", "time")}
+        check(restored_metrics == want_eval,
+              f"TR8 eval of the restored weights {restored_metrics}, trainer {want_eval}")
+        print(f"TR8 eval clips/s ({len(val)} clips of 8 x 224^2 from uint8 frames, the loader, "
+              f"preprocess and bias cache included): {len(val) / eval_s:.2f} "
+              f"({eval_s:.3f} s) on {card}", flush=True)
+        del model, fresh, got, want, trainer
+        torch.cuda.empty_cache()
+
+        # 3. resume to 3 epochs
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        resumed = train_entry.main([config, "--work-dir", work, "--resume", *options,
+                                    "total_epochs=3"])
+        torch.cuda.synchronize()
+        parts["train entry, --resume to 3 epochs"] = time.perf_counter() - t0
+        check(resumed.start_epoch == 2 and resumed.state.step == 12,
+              f"TR8 resume: start epoch {resumed.start_epoch}, step {resumed.state.step}")
+        check_launches("TR8 resume (4 steps, 1 eval)", launch_counts(), tr8_launches(1), 1, "run")
+        train, evals = tr8_lines(work)
+        check([r["step"] for r in train][-4:] == [9, 10, 11, 12] and 12 in evals,
+              f"TR8 resumed lines {train[-4:]}")
+        saves += resumed.ckpt.saves
+
+        # the per-step metric sync (float() of every metric, as the JAX
+        # trainer does): 3 steps on a staged batch with it and 3 without
+        ds = build_dataset(cfg.data.train, None)
+        loader = DataLoader(ds, batch_size=TR8_CLIPS, num_workers=2, seed=0)
+        staged = to_model_batch(next(iter(loader)), cfg.img_size, torch.bfloat16, dev)
+        step = resumed.train_steps[0]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        timed = {}
+        for mode in ("sync", "nosync", "sync", "nosync"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                _, metrics = step(resumed.state, staged, gen)
+                if mode == "sync":
+                    metrics = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize()
+            timed.setdefault(mode, []).append((time.perf_counter() - t0) / 3)
+        # the train loader alone (its 2 thread workers, no device work): s a batch
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader.epoch(2))
+        loader_s = (time.perf_counter() - t0) / n_batches
+        logged = [1 / r["steps_per_sec"] for r in train
+                  if r["epoch"] >= 1 and r["step"] % TR8_STEPS_PER_EPOCH != 1]
+        print(f"TR8 s a step: on a staged batch with the per-step float() of every metric "
+              f"{[round(t, 4) for t in timed['sync']]}, without (one sync after 3) "
+              f"{[round(t, 4) for t in timed['nosync']]}; the train loader alone "
+              f"{loader_s:.4f} s a batch; the trainer's logged steps (epochs 2-3, each "
+              f"epoch's first left out) {[round(t, 4) for t in logged]} on {card}", flush=True)
+        del resumed, staged
+        torch.cuda.empty_cache()
+
+        # 4. the test entry on the best step
+        best = read_json(os.path.join(ckpt, "best.json"))["step"]
+        t0 = time.perf_counter()
+        metrics = test_entry.main([config, "--ckpt-dir", ckpt, "--step", str(best), *options])
+        parts["test entry"] = time.perf_counter() - t0
+        want_eval = {k: v for k, v in evals[best].items() if k not in ("step", "time")}
+        check(metrics == want_eval, f"TR8 test entry {metrics}, trainer's eval line {want_eval}")
+        print(f"TR8 test entry on the best step {best}: {metrics}, the trainer's eval line's",
+              flush=True)
+
+        # 5. three train-loader epochs through one prefetch_to_device call:
+        # 12 batches through 3 pinned slots (size=1) and a 5-deep recycled
+        # host ring, so both rings wrap; nothing syncs until every batch is
+        # in, then each kept device batch is held against its synchronous copy
+        epochs = (1, 2, 3)
+
+        def chained(loader):
+            return (b for e in epochs for b in loader.epoch(e))
+
+        pooled = DataLoader(ds, batch_size=TR8_CLIPS, num_workers=2, seed=0, reuse_buffers=5)
+        plain = DataLoader(ds, batch_size=TR8_CLIPS, num_workers=2, seed=0)
+        t0 = time.perf_counter()
+        kept_batches = list(prefetch_to_device(chained(pooled), dev, size=1))
+        torch.cuda.synchronize()
+        parts["prefetch 3 epochs"] = time.perf_counter() - t0
+        want = list(chained(plain))
+        check(len(kept_batches) == len(want) == len(epochs) * TR8_STEPS_PER_EPOCH,
+              f"TR8 prefetch gave {len(kept_batches)} batches of {len(want)}")
+        for got_b, host in zip(kept_batches, want):
+            check(got_b.keys() == host.keys() and all(
+                torch.equal(got_b[k], torch.as_tensor(np.asarray(v)).to(dev))
+                for k, v in host.items()), "TR8 prefetched batch differs from its synchronous copy")
+        print(f"TR8 prefetch_to_device: {len(kept_batches)} batches of {len(epochs)} epochs "
+              f"through 3 pinned slots and reuse_buffers=5, bitwise the synchronous copies",
+              flush=True)
+        del kept_batches, want
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+        logger.setLevel(level)
+    parts["phase"] = time.perf_counter() - t_phase
+    print(f"TR8 seconds: {{{', '.join(f'{k}: {v:.2f}' for k, v in parts.items())}}}; "
+          f"checkpoint saves, host snapshot + write s: "
+          f"{[(round(sv['snapshot_s'], 3), round(sv['write_s'], 3)) for sv in saves]} of "
+          f"{saves[0]['bytes'] / 2**30:.3f} GiB each on {card}", flush=True)
+    return counts
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2202,6 +2477,10 @@ def main(argv=None) -> int:
                                profile, mask_token=True)
     itm, itm_counts = itm_phase(dev, card, profile)
 
+    # TR8: the config-driven trainer and evaluator through the port's entry points
+    print(card_line(), flush=True)
+    tr8_counts = tr8_phase(dev, card)
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -2270,6 +2549,13 @@ def main(argv=None) -> int:
               f"{TRAIN_STEPS} steps", sources) for k in ("K1", "K5", "K2S")]
     rows += [(k, itm, itm_counts, f"ITM (rerank score), ms per call of {ITM_PAIRS} pairs, "
               f"launches over {ITM_CALLS + 1} calls", sources) for k in ("K3", "K4")]
+    # TR8 runs the pretrain step's 16-clip 8-frame Swin shapes (timed in phase
+    # 8c) and eval8's forward shapes (phase 3); launches over its first run
+    tr8_run = "launches over 2 epochs through the train entry (8 steps, 4 eval forwards)"
+    rows += [(k, pre, tr8_counts, f"TR8 (train entry), ms per step, {tr8_run}", sources)
+             for k in ("K1", "K5", "K2S")]
+    rows += [(k, results, tr8_counts, f"TR8 (train entry's eval), ms per forward, {tr8_run}",
+              sources) for k in ("K1", "K2", "K3", "K4")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],

@@ -1,11 +1,12 @@
 """clover_tpu_torch: the PyTorch + CUDA port of clover_tpu for NVIDIA Hopper.
 
 The JAX package ``clover_tpu`` is the frozen reference; this package is
-held against it by ``tests/test_torch_*.py``. Port so far: the retrieval
-eval forward (Swin video tower + BERT text tower + NCE head) with four
-hand-written CUDA kernels under ``csrc/`` (window attention, the two MLP
-halves, LayerNorm). It imports torch and never jax; of the JAX package it
-reuses only ``clover_tpu.config`` and ``clover_tpu.evaluation.metrics``.
+held against it by ``tests/test_torch_*.py``. It has the models, losses,
+train and eval steps and loops, the data pipeline, checkpoints, the
+trainer and the train / test entry points (``clover_tpu_torch.tools``),
+with hand-written CUDA kernels under ``csrc/`` for every Pallas kernel of
+the JAX package. It imports torch and never jax, and nothing of
+``clover_tpu``: it keeps its own copies of the host code it needs.
 """
 
 __version__ = "0.1.0"

@@ -1,3 +1,8 @@
+from clover_tpu_torch.engine.checkpoint import (  # noqa: F401
+    CheckpointManager,
+    load_params,
+    merge_pretrained_params,
+)
 from clover_tpu_torch.engine.eval_loop import (  # noqa: F401
     run_itm_retrieval_eval,
     run_mc_retrieval_eval,
@@ -24,3 +29,4 @@ from clover_tpu_torch.engine.steps import (  # noqa: F401
     make_retrieval_train_step,
 )
 from clover_tpu_torch.engine.train_state import TrainState  # noqa: F401
+from clover_tpu_torch.engine.trainer import Trainer, interleave_loaders  # noqa: F401

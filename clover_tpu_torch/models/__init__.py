@@ -21,5 +21,6 @@ from clover_tpu_torch.models.pretrain import CloverPretrain, PretrainConfig  # n
 from clover_tpu_torch.models.swin3d import (  # noqa: F401
     SwinConfig,
     SwinTransformer3D,
+    bias_cache_builder,
     swin_bias_cache,
 )

@@ -304,6 +304,15 @@ def swin_bias_cache(backbone: "SwinTransformer3D", cfg: SwinConfig,
     return cache
 
 
+def bias_cache_builder(cfg: SwinConfig):
+    """Callable form for the eval loops (the JAX ``bias_cache_builder``):
+    ``build(model, token_dims)`` -> ``swin_bias_cache(model.backbone, cfg,
+    token_dims)``. A loop calls it at its first batch, so each eval builds
+    the cache, and the kernels' layouts kept with it, from the parameters
+    the model holds at that time."""
+    return lambda model, token_dims: swin_bias_cache(model.backbone, cfg, token_dims)
+
+
 def embed_dims(cfg: SwinConfig, in_shape: Tuple3) -> Tuple3:
     """(T, H, W) raw clip -> (D', H', W') token dims after the patch embed:
     the clip padded to whole patches, then patches every ``stride``."""
