@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of clover_tpu_torch's retrieval-eval, retrieval-finetune,
-pretrain, QA / FIB and ITM paths and its train / test entry points on one
-CUDA card.
+pretrain, QA / FIB and ITM paths, its train / test entry points and its
+serving bundles on one CUDA card.
 
     python3 chip_smoke.py [--profile]
 
@@ -137,6 +137,26 @@ Phases, in order; any failure raises and exits non-zero:
    clips/s, the checkpoints' seconds and bytes, the per-step metric sync's
    cost, peak memory; the temporary work dir removed whether it passes or
    not;
+8n. SRV, serving bundles of the retrieval towers (clover_tpu_torch/serving.py):
+   the dress rehearsal's main (tools/dress_rehearsal.py: its synthetic
+   image-Swin-B and BERT-base state dicts converted by
+   tools/convert_checkpoint.py with the 2D inflation, the patch embed
+   against Conv3d, load_from, a bundle at B=2 served against the eager
+   model), the converted checkpoint merged into eval8's model; video_tower_b32 (8 x
+   224^2 uint8), text_tower_b32 (L=30) and similarity (1000 candidates)
+   exported (torch.export: every kernel as its clover::* op, counted in the
+   graphs), saved, then loaded and run in a subprocess that imports no
+   model module (exact launches a forward); the served embeddings against
+   the eager kernel path (bitwise) and the plain bf16 path (cosine per
+   row), and no farther from the plain path in fp32 than the plain bf16
+   path is, the similarity artifact against
+   similarity_fn; artifact and eager clips/s, export seconds, bundle bytes,
+   peak memory and K4's host cost a call through its op and direct; then
+   the 32-frame towers of configs/exp/finetune_msrvtt_retrieval.py at B=8
+   through `python -m clover_tpu_torch.tools.export` on the converted
+   checkpoint, one batch against the eager model (K6 24, K2 24, K3 12, K4
+   18). Every train phase also checks that no train step calls a registered
+   op;
 9. print the kernel table as one JSON line (one row per kernel and path:
    launches on the path's run, ms and plain ms summed per forward or step,
    the card's bound for the same work, and one PyTorch library call's time
@@ -324,6 +344,37 @@ TR8_OPTIONS = ("model.dtype=bfloat16", "total_epochs=2", "log_interval=1",
 TR8_CLIPS, TR8_STEPS_PER_EPOCH, TR8_FORWARDS_PER_EVAL = 16, 4, 2
 TR8_STEP_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24}
 TR8_FORWARD_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
+# SRV (phase 8n): serving bundles of the retrieval towers (serving.py). The
+# dress rehearsal (tools/dress_rehearsal.py, its main at a batch of 2): its
+# synthetic image-Swin-B and BERT-base state dicts in their published key
+# schemas, converted by tools/convert_checkpoint.py (the 2D inflation),
+# exported and served. The converted checkpoint merged into eval8's model
+# (kernels, bf16): video_tower_b32
+# (32 clips of 8 x 224^2 uint8, host_s2d swapped to s2d), text_tower_b32
+# (L=30) and similarity (1000 candidates) exported, saved, loaded and run in a
+# subprocess that imports no model module, SRV_BATCHES batches after one
+# untimed. The two towers launch eval8's kernels, through their ops: the
+# video graph K1 24, K2 24, K4 29, the text graph K3 12, K4 13. Then the
+# 32-frame towers of configs/exp/finetune_msrvtt_retrieval.py (its test
+# split's 32 frames, every Swin block through K6) at B=8 through the export
+# entry on the converted checkpoint, one batch against the eager model.
+SRV_B, SRV_CANDIDATES, SRV_BATCHES = B, 1000, 3
+SRV_ROUNDS, SRV_PASSES = 2, 3   # the artifact / eager A B B A rounds
+SRV_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
+SRV_OPS = {"video": {"k1_window_attention": 24, "k2_ln_mlp_residual": 24, "k4_layer_norm": 29},
+           "text": {"k3_mlp_postln": 12, "k4_layer_norm": 13}}
+SRV32_B, SRV32_CONFIG = 8, os.path.join("configs", "exp", "finetune_msrvtt_retrieval.py")
+SRV32_LAUNCHES = {"K6": 24, "K2": 24, "K3": 12, "K4": 18}
+SRV32_OPS = {"video": {"k6_window_attn_block": 24, "k2_ln_mlp_residual": 24, "k4_layer_norm": 5},
+             "text": {"k3_mlp_postln": 12, "k4_layer_norm": 13}}
+# the served embeddings against the eager kernel path (the same ops, run
+# eagerly: bitwise expected), against the plain bf16 path (min cosine per
+# row; read 0.999982-0.999983 video, 0.999885-0.999921 text on the H100,
+# by the projection head's seeded init) and against the plain path in fp32:
+# no farther from it than the plain bf16 path is, less SRV_FP32_MARGIN
+# (read video / text 0.999879-0.999898 / 0.999895-0.999920 served,
+# 0.999884-0.999895 / 0.999892-0.999913 plain bf16)
+SRV_GAP_MAX, SRV_COS_MIN, SRV_FP32_MARGIN = 1e-3, 0.9998, 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1110,9 +1161,12 @@ def drive_train_path(model, batches, dev, make=make_train_step):
     step, the peak memory as text)."""
     import torch
 
+    from clover_tpu_torch.ops import library
+
     state, step, generator = make(model, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
+    library.reset_call_counts()
     metrics, seconds, grads1 = [], [], None
     for batch in batches:
         t0 = time.perf_counter()
@@ -1126,6 +1180,9 @@ def drive_train_path(model, batches, dev, make=make_train_step):
         if grads1 is None:
             grads1 = {n: p.grad.detach().float().clone() for n, p in model.named_parameters()}
     peak = peak_memory(dev)
+    # the registered ops are the eval forward's: no train step calls one
+    called = {k: n for k, n in library.call_counts().items() if n}
+    check(not called, f"a train step called registered ops: {called}")
     model.zero_grad(set_to_none=True)
     del state
     return metrics, grads1, seconds, peak
@@ -2316,6 +2373,328 @@ def tr8_phase(dev, card):
     return counts
 
 
+SRV_SERVE = """
+import json, sys, time
+import torch
+from clover_tpu_torch import ops
+from clover_tpu_torch.serving import load_bundle
+work = sys.argv[1]
+fns = load_bundle(work + "/srv_bundle")
+models = sorted(m for m in sys.modules if m.startswith("clover_tpu_torch.models"))
+inputs = torch.load(work + "/inputs.pt", weights_only=True)
+video, text = fns["video_tower_b%d" % inputs["B"]], fns["text_tower_b%d" % inputs["B"]]
+dev = torch.device("cuda", 0)
+batches = [tuple(t.to(dev) for t in b) for b in inputs["batches"]]
+with torch.inference_mode():
+    video(batches[0][0]), text(*batches[0][1:])   # untimed: the graphs' first run
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    ops.library.reset_call_counts()
+    out_v, out_t = [], []
+    t0 = time.perf_counter()
+    for frames, ids, mask in batches:
+        out_v.append(video(frames))
+        out_t.append(text(ids, mask))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, calls = ops.launch_counts(), ops.library.call_counts()
+    sim = fns["similarity"](*(t.to(dev) for t in inputs["sim"]))
+torch.save({"video": torch.cat(out_v).cpu(), "text": torch.cat(out_t).cpu(), "sim": sim.cpu()},
+           work + "/served.pt")
+print(json.dumps({"models": models, "seconds": seconds, "launches": launches, "calls": calls,
+                  "peak": torch.cuda.max_memory_allocated(dev)}))
+"""
+
+
+def graph_ops(ep):
+    """{op: nodes} of an exported graph's clover ops and softmax calls."""
+    found = {}
+    for node in ep.graph.nodes:
+        name = str(node.target)
+        if node.op == "call_function" and ("clover." in name or "softmax" in name):
+            key = name.split(".")[1] if name.startswith("clover.") else name
+            found[key] = found.get(key, 0) + 1
+    return found
+
+
+def check_graphs(exports, tag, B, want):
+    """The video and text graphs hold exactly ``want``'s clover ops, and the
+    video graph no softmax (no plain attention)."""
+    for tower, ops_want in want.items():
+        got = graph_ops(exports[f"{tower}_tower_b{B}"])
+        print(f"{tag} {tower}_tower_b{B} graph: {got}", flush=True)
+        check({k: n for k, n in got.items() if "softmax" not in k} == ops_want,
+              f"{tag} {tower} graph's ops {got}, expected {ops_want}")
+        if tower == "video":
+            check(not any("softmax" in k for k in got), f"{tag}: plain attention in {got}")
+
+
+def dispatch_us(dev, rows, C, reps=200):
+    """Host microseconds a call of K4 through its op and through the direct
+    wrapper (A B B A rounds, each timing ``reps`` calls queued without a
+    synchronize, after one), on (rows, C) bf16."""
+    import torch
+
+    from clover_tpu_torch.ops import fused_layer_norm, library
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    x = torch.randn(rows, C, generator=g, device=dev).bfloat16()
+    w, b = torch.ones(C, device=dev), torch.zeros(C, device=dev)
+    forms = {"op": lambda: library.k4_layer_norm(x, w, b, 1e-5),
+             "direct": lambda: fused_layer_norm(x, w, b, 1e-5)}
+    us = {k: [] for k in forms}
+    with torch.inference_mode():
+        check(torch.equal(forms["op"](), forms["direct"]()), "K4's op differs from its wrapper")
+        for name in ("op", "direct", "direct", "op"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                forms[name]()
+            us[name].append((time.perf_counter() - t0) * 1e6 / reps)
+            torch.cuda.synchronize()
+    return {k: round(min(v), 2) for k, v in us.items()}
+
+
+def srv_phase(dev, card):
+    """SRV: the dress rehearsal's main (tools/dress_rehearsal.py: convert,
+    load_from, export, serve, its gates); then eval8's towers on the
+    converted checkpoint exported, saved, loaded in a process that
+    imports no model module and served (exact ops in the graphs, exact
+    launches a forward, embeddings against the eager kernel path and the
+    plain path, the similarity artifact against similarity_fn, clips/s
+    against the eager path, export seconds, bundle bytes, peak memory, the
+    ops' host cost a call); then the 32-frame towers through the export
+    entry. The temporary work dir is removed whether it passes or not. ->
+    (launch counts over the 8-frame serve, over the 32-frame batch)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from clover_tpu_torch import ops
+    from clover_tpu_torch.builder import build_model
+    from clover_tpu_torch.config import load_config
+    from clover_tpu_torch.engine import CheckpointManager, restore_or_init
+    from clover_tpu_torch.models import (BertConfig, CloverFinetune, FinetuneConfig, SwinConfig,
+                                         swin_bias_cache)
+    from clover_tpu_torch.models.swin3d import embed_dims, space_to_depth
+    from clover_tpu_torch.ops.preprocess import eval_preprocess
+    from clover_tpu_torch.serving import (export_retrieval_towers, load_bundle, save_bundle,
+                                          similarity_fn)
+    from clover_tpu_torch.tools import dress_rehearsal as dress
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="clover_srv_")
+    try:
+        # 1. the dress rehearsal end to end (its synthetic published
+        # checkpoints converted, its gates), then the converted checkpoint
+        # merged into eval8's model
+        rehearsal = dress.main(["--work", work])
+        t_rehearsal = time.perf_counter() - t_phase
+        gc.collect()   # the rehearsal's exported modules hold reference cycles
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated(dev)
+        converted_dir = rehearsal["converted"]
+        cfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True), text_bert=BertConfig())
+        model = CloverFinetune(cfg, dtype=torch.bfloat16, kernels=True).eval()
+        loaded, fresh = restore_or_init(model, CheckpointManager(converted_dir).restore_params(),
+                                        torch.Generator().manual_seed(SEED))
+        check(loaded == ["backbone", "text_backbone"], f"SRV merged {loaded}, fresh {fresh}")
+        t_convert = time.perf_counter() - t_phase
+        print(f"SRV dress rehearsal {t_rehearsal:.1f} s (patch embed against Conv3d max abs err "
+              f"{rehearsal['patch_embed_err']:.2e}, served vs eager {rehearsal['gap']:.3e}); "
+              f"eval8's model merged {loaded} (fresh {fresh}); {t_convert:.1f} s; the card "
+              f"held {left} bytes after the rehearsal", flush=True)
+
+        # 2. export and save
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        exports = export_retrieval_towers(model, batch_sizes=(SRV_B,), frames=T, image_size=S,
+                                          text_len=L, sim_candidates=SRV_CANDIDATES)
+        export_s = time.perf_counter() - t0
+        export_peak = peak_memory(dev)
+        check_graphs(exports, "SRV", SRV_B, SRV_OPS)
+        t0 = time.perf_counter()
+        # a directory of its own: a bundle is every artifact in its directory
+        bundle = save_bundle(exports, os.path.join(work, "srv_bundle"))
+        save_s = time.perf_counter() - t0
+        manifest = read_json(os.path.join(bundle, "manifest.json"))
+        nbytes = {k: m["nbytes"] for k, m in manifest.items()}
+        check(all(m["device"] == "cuda" for m in manifest.values())
+              and nbytes[f"text_tower_b{SRV_B}"] < nbytes[f"video_tower_b{SRV_B}"],
+              f"SRV manifest {manifest}")
+        del exports
+
+        # 3. served in a process without the model modules
+        rng = np.random.default_rng(SEED + 40)
+        batches = []
+        for _ in range(SRV_BATCHES):
+            lengths = rng.integers(8, L + 1, size=SRV_B)
+            tok = rng.integers(1000, cfg.text_bert.vocab_size, size=(SRV_B, L))
+            tok[:, 0] = 101
+            mask = (np.arange(L)[None] < lengths[:, None]).astype(np.int64)
+            batches.append((torch.from_numpy(rng.integers(0, 256, (SRV_B, T, S, S, 3),
+                                                          dtype=np.uint8)),
+                            torch.from_numpy(tok * mask), torch.from_numpy(mask)))
+        sim_in = tuple(torch.from_numpy(rng.normal(size=(SRV_CANDIDATES, cfg.vts_embed_dim))
+                                        .astype(np.float32)) for _ in range(2))
+        torch.save({"B": SRV_B, "batches": batches, "sim": sim_in},
+                   os.path.join(work, "inputs.pt"))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            p for p in (os.getcwd(), os.environ.get("PYTHONPATH")) if p))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", SRV_SERVE, work], capture_output=True,
+                              text=True, env=env, timeout=600)
+        serve_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"SRV serving process failed:\n{proc.stderr[-3000:]}")
+        served_run = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(served_run["models"] == [], f"the serving process imported {served_run['models']}")
+        counts = {k: served_run["launches"][fn.__name__] for k, fn in (
+            ("K1", ops.flat2_window_attention), ("K2", ops.fused_ln_mlp_residual),
+            ("K3", ops.fused_mlp_postln), ("K4", ops.fused_layer_norm),
+            ("K6", ops.fused_window_attn_block))}
+        check_launches("SRV (served in a process without the models)",
+                       {**{k: 0 for k in launch_counts()}, **counts}, SRV_LAUNCHES, SRV_BATCHES,
+                       "forward")
+        check(sum(served_run["launches"].values()) == sum(counts.values()),
+              f"SRV launched another kernel: {served_run['launches']}")
+        served = torch.load(os.path.join(work, "served.pt"), weights_only=True)
+        served_cps = SRV_B * SRV_BATCHES / served_run["seconds"]
+
+        # 4. against the eager kernel path, the plain path and similarity_fn
+        cache = swin_bias_cache(model.backbone, cfg.swin, embed_dims(cfg.swin, (T, S, S)))
+        on_dev = [tuple(t.to(dev) for t in b) for b in batches]
+
+        def eager(m, frames, ids, mask):
+            imgs = space_to_depth(eval_preprocess(frames, S, m.dtype, normalize=False),
+                                  cfg.swin.patch_size)
+            return m.forward_video(imgs[:, None], cache).float(), m.forward_text(ids,
+                                                                                 mask).float()
+
+        # artifact against eager clips/s in this process: SRV_ROUNDS A B B A
+        # rounds, each form timed over SRV_PASSES passes of the batches
+        fns = load_bundle(bundle)
+        forms = {"artifact": lambda frames, ids, mask: (fns[f"video_tower_b{SRV_B}"](frames),
+                                                        fns[f"text_tower_b{SRV_B}"](ids, mask)),
+                 "eager": lambda *b: eager(model, *b)}
+        cps, kept = {k: [] for k in forms}, {}
+        with torch.inference_mode():
+            for name in forms:
+                forms[name](*on_dev[0])
+            for name in ("artifact", "eager", "eager", "artifact") * SRV_ROUNDS:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(SRV_PASSES):
+                    kept[name] = [forms[name](*b) for b in on_dev]
+                torch.cuda.synchronize()
+                cps[name].append(SRV_B * SRV_BATCHES * SRV_PASSES / (time.perf_counter() - t0))
+        here = [torch.cat([o[i] for o in kept["artifact"]]).cpu() for i in (0, 1)]
+        check(torch.equal(here[0], served["video"]) and torch.equal(here[1], served["text"]),
+              "SRV: the bundle loaded here differs from the serving process's")
+        ev, et = (torch.cat([o[i] for o in kept["eager"]]).cpu() for i in (0, 1))
+        del fns, forms, kept
+        gap = max(float((served["video"] - ev).abs().max()),
+                  float((served["text"] - et).abs().max()))
+        plain = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            ref = CloverFinetune(cfg, dtype=dtype, kernels=False).eval()
+            ref.load_state_dict(model.state_dict())
+            with torch.inference_mode():
+                pv, pt = zip(*(eager(ref, *b) for b in on_dev))
+            plain[dtype] = (torch.cat(pv).cpu(), torch.cat(pt).cpu())
+            del ref, pv, pt
+        cos_v, cos_t = min_cosines((served["video"], served["text"]), plain[torch.bfloat16])
+        fp32_served = min_cosines((served["video"], served["text"]), plain[torch.float32])
+        fp32_plain = min_cosines(plain[torch.bfloat16], plain[torch.float32])
+        sim_gap = float((served["sim"] - similarity_fn(*sim_in)).abs().max())
+        print(f"SRV served vs eager kernel path: max abs gap {gap:.3e} (bound {SRV_GAP_MAX}); "
+              f"vs plain path: min cosine video {cos_v:.6f} text {cos_t:.6f} (bound "
+              f"{SRV_COS_MIN}); against the fp32 plain path: served {fp32_served[0]:.6f} / "
+              f"{fp32_served[1]:.6f}, bf16 plain {fp32_plain[0]:.6f} / {fp32_plain[1]:.6f} "
+              f"(served no lower than bf16 plain less {SRV_FP32_MARGIN}); "
+              f"similarity vs similarity_fn max abs {sim_gap:.3e}", flush=True)
+        check(bool(torch.isfinite(served["video"]).all() and torch.isfinite(served["text"]).all()),
+              "SRV: non-finite served embedding")
+        check(gap <= SRV_GAP_MAX, f"SRV served embeddings differ from the eager path: {gap}")
+        check(cos_v >= SRV_COS_MIN and cos_t >= SRV_COS_MIN,
+              f"SRV served embeddings disagree with the plain path: {cos_v}, {cos_t}")
+        check(all(s >= p - SRV_FP32_MARGIN for s, p in zip(fp32_served, fp32_plain)),
+              f"SRV served embeddings are farther from the fp32 plain path ({fp32_served}) "
+              f"than the bf16 plain path is ({fp32_plain})")
+        check(sim_gap <= 1e-5, f"SRV similarity differs from similarity_fn: {sim_gap}")
+
+        # 5. the ops' host cost a call: K4 at eval8's Swin stage-0 and text shapes
+        dispatch = {shape: dispatch_us(dev, *shape)
+                    for shape in ((B * T // 2 * 56 * 56, cfg.swin.embed_dim),
+                                  (B * L, cfg.text_bert.hidden_size))}
+        del model, cache, on_dev, served, ev, et
+        torch.cuda.empty_cache()
+
+        # 6. the 32-frame towers at B=8 through the export entry, one batch
+        # against the eager model of the same config and checkpoint
+        t0 = time.perf_counter()
+        b32 = os.path.join(work, "bundle32")
+        proc = subprocess.run([sys.executable, "-m", "clover_tpu_torch.tools.export", SRV32_CONFIG,
+                               "--out", b32, "--ckpt-dir", converted_dir, "--batch-sizes",
+                               str(SRV32_B), "--text-len", str(L), "--sim-candidates",
+                               str(SRV32_B)], capture_output=True, text=True, env=env,
+                              timeout=600)
+        entry_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"SRV32 export entry failed:\n{proc.stderr[-3000:]}")
+        print("SRV32 export entry log:\n  " + "\n  ".join(
+            ln.split(" clover_tpu_torch ", 1)[-1] for ln in proc.stdout.splitlines()
+            if " INFO " in ln or " WARNING " in ln), flush=True)
+        # the export entry's weights: the same build, restore and seed
+        scfg = load_config(SRV32_CONFIG)
+        smodel, _ = build_model(scfg.model, device=dev)
+        restore_or_init(smodel, CheckpointManager(converted_dir).restore_params(),
+                        torch.Generator().manual_seed(0))
+        smodel.eval()
+        eps = {name: torch.export.load(os.path.join(b32, f"{name}.pt2"))
+               for name in (f"video_tower_b{SRV32_B}", f"text_tower_b{SRV32_B}")}
+        check_graphs(eps, "SRV32", SRV32_B, SRV32_OPS)
+        fns = {name: ep.module().requires_grad_(False) for name, ep in eps.items()}
+        del eps
+        frames = torch.from_numpy(rng.integers(0, 256, (SRV32_B, T32, S, S, 3),
+                                               dtype=np.uint8)).to(dev)
+        ids, mask = (t[:SRV32_B].to(dev) for t in batches[0][1:])
+        with torch.inference_mode():
+            ops.reset_launch_counts()
+            got_v, got_t = fns[f"video_tower_b{SRV32_B}"](frames), fns[f"text_tower_b{SRV32_B}"](
+                ids, mask)
+            torch.cuda.synchronize()
+            counts32 = launch_counts()
+            cache32 = swin_bias_cache(smodel.backbone, smodel.config.swin,
+                                      embed_dims(smodel.config.swin, (T32, S, S)))
+            want_v = smodel.forward_video(eval_preprocess(frames, S, smodel.dtype)[:, None],
+                                          cache32).float()
+            want_t = smodel.forward_text(ids, mask).float()
+        check_launches("SRV32 (32-frame towers from the export entry)", counts32, SRV32_LAUNCHES,
+                       1, "forward")
+        gap32 = max(float((got_v - want_v).abs().max()), float((got_t - want_t).abs().max()))
+        print(f"SRV32 served vs eager kernel path: max abs gap {gap32:.3e} (bound "
+              f"{SRV_GAP_MAX})", flush=True)
+        check(gap32 <= SRV_GAP_MAX and bool(torch.isfinite(got_v).all()),
+              f"SRV32 served embeddings differ from the eager path: {gap32}")
+        del smodel, fns, frames, got_v, got_t, want_v, want_t, cache32
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+    ratio = float(np.median(cps["artifact"]) / np.median(cps["eager"]))
+    print(f"SRV clips/s (B={SRV_B}, {T}x{S}^2 uint8 + L={L} text, {SRV_BATCHES} batches x "
+          f"{SRV_PASSES} a reading): artifact {[round(c, 2) for c in cps['artifact']]} eager "
+          f"{[round(c, 2) for c in cps['eager']]} in A B B A rounds (artifact_vs_eager of the "
+          f"medians {ratio:.4f}); the serving process {served_cps:.2f}; export "
+          f"{export_s:.2f} s (peak {export_peak}), save "
+          f"{save_s:.2f} s, bundle bytes {nbytes}, the serving process {serve_s:.2f} s (peak "
+          f"{served_run['peak'] / 2**30:.2f} GiB); the export entry at 32 frames {entry_s:.2f} s; "
+          f"K4 host us a call (op, direct) {dispatch}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return ({**{k: 0 for k in launch_counts()}, **counts}, counts32)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2481,6 +2860,12 @@ def main(argv=None) -> int:
     print(card_line(), flush=True)
     tr8_counts = tr8_phase(dev, card)
 
+    # SRV: serving bundles of the retrieval towers (eval8's kernels; the
+    # 32-frame towers' K6-K4 at B=8 timed here)
+    print(card_line(), flush=True)
+    srv32 = kernel_phase(cfg, dev, T32, SEED + 31, keys=("K6", "K2", "K3", "K4"), clips=SRV32_B)
+    srv_counts, srv32_counts = srv_phase(dev, card)
+
     # one row per kernel and path: launches over the path's run, ms summed
     # over one eval forward or one train step (K1 runs on two paths)
     sources = {"K1": ("csrc/window_attention.cu", "clover_tpu/ops/window_attention.py:1274"),
@@ -2556,6 +2941,13 @@ def main(argv=None) -> int:
              for k in ("K1", "K5", "K2S")]
     rows += [(k, results, tr8_counts, f"TR8 (train entry's eval), ms per forward, {tr8_run}",
               sources) for k in ("K1", "K2", "K3", "K4")]
+    # SRV serves eval8's shapes (phase 3's times); SRV32 the 32-frame towers at B=8
+    rows += [(k, results, srv_counts, f"SRV (served bundle, 8 frames), ms per forward, "
+              f"launches over {SRV_BATCHES} forwards of the loaded artifacts", sources)
+             for k in ("K1", "K2", "K3", "K4")]
+    rows += [(k, srv32, srv32_counts, f"SRV32 (served bundle from the export entry, 32 frames, "
+              f"B={SRV32_B}), ms per forward, launches over 1 forward", sources)
+             for k in ("K6", "K2", "K3", "K4")]
     table = [{"name": res[k]["name"], "route": "cuda",
               "source": "clover_tpu_torch/" + src[k][0], "replaces": src[k][1],
               "launches": n[k], "max_abs_err": res[k]["err"],

@@ -2,6 +2,7 @@ from clover_tpu_torch.engine.checkpoint import (  # noqa: F401
     CheckpointManager,
     load_params,
     merge_pretrained_params,
+    restore_or_init,
 )
 from clover_tpu_torch.engine.eval_loop import (  # noqa: F401
     run_itm_retrieval_eval,

@@ -101,6 +101,21 @@ def merge_pretrained_params(model: torch.nn.Module, pretrained: Dict[str, torch.
     return model, loaded, fresh
 
 
+def restore_or_init(model: torch.nn.Module, pretrained: Dict[str, torch.Tensor],
+                    generator: torch.Generator) -> Tuple[List[str], List[str]]:
+    """A built model's weights from a checkpoint: each child that
+    ``merge_pretrained_params`` restores, and every other child at its
+    seeded init (``init_params`` on that child alone), so no weight the
+    checkpoint replaces is drawn first. -> (loaded children, fresh
+    children)."""
+    from clover_tpu_torch.models import init_params
+
+    _, loaded, fresh = merge_pretrained_params(model, pretrained)
+    for child in fresh:
+        init_params(getattr(model, child), generator)
+    return loaded, fresh
+
+
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
                  async_save: bool = False):
@@ -151,11 +166,23 @@ class CheckpointManager:
         async_save=True the disk write runs on a background thread so the
         train loop keeps stepping."""
         self._wait()
-        step = int(state.step)
-        path = self._path(step)
         t0 = time.perf_counter()
         payload = _state_payload(state)
-        snapshot_s = time.perf_counter() - t0
+        return self._write(int(state.step), payload, time.perf_counter() - t0, meta)
+
+    def save_params(self, params: Dict[str, torch.Tensor],
+                    meta: Optional[Dict[str, Any]] = None) -> str:
+        """A weights-only checkpoint at step 0 ({parameter name: tensor}, no
+        optimizer state; a converted one, tools/convert_checkpoint.py): what
+        ``restore_params`` and a config's ``load_from`` read."""
+        self._wait()
+        payload = {"step": 0, "params": {n: _host_copy(t) for n, t in params.items()},
+                   "buffers": {}}
+        return self._write(0, payload, 0.0, meta)
+
+    def _write(self, step: int, payload: Dict[str, Any], snapshot_s: float,
+               meta: Optional[Dict[str, Any]]) -> str:
+        path = self._path(step)
 
         def write():
             t1 = time.perf_counter()

@@ -3,7 +3,8 @@
 Post-LN encoder layers with HF semantics: additive -10000 key mask, erf
 GELU, LayerNorm eps 1e-12. In eval the embedding norm and the attention
 norms are the forward-only LayerNorm kernel sites (K4) and the FFN half is
-the post-LN MLP kernel (K3). In training (``train()`` mode) the JAX package
+the post-LN MLP kernel (K3), each through its registered op
+(``ops.library``). In training (``train()`` mode) the JAX package
 keeps the norms in XLA, so they run plain here, with dropout on the
 embeddings, the attention probabilities and the hidden outputs drawn from
 the generator passed to ``forward``. The FFN half in training is plain too
@@ -27,11 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from clover_tpu_torch.models.layers import LayerNorm, Linear, dropout, dropout_mask, remat
-from clover_tpu_torch.ops.mlp_block import (
-    FusedMlpPostlnDropoutFn,
-    fused_mlp_postln,
-    mlp_postln_plain,
-)
+from clover_tpu_torch.ops import library
+from clover_tpu_torch.ops.mlp_block import FusedMlpPostlnDropoutFn, mlp_postln_plain
 
 # additive fill for padded keys (transformers==4.6.1, the reference's pin)
 ATTENTION_MASK_FILL = -10000.0
@@ -159,7 +157,7 @@ class BertLayer(nn.Module):
         args = (x2, self.output_norm.weight, self.output_norm.bias, self.intermediate.weight,
                 self.intermediate.bias, self.output.weight, self.output.bias)
         if not self.training:
-            op = fused_mlp_postln if self.kernels else mlp_postln_plain
+            op = library.k3_mlp_postln if self.kernels else mlp_postln_plain
             return op(*args, self.eps).view(x.shape)
         if not self.cfg.fused_train(x2.shape[0]):
             # the JAX train path's unfused FFN (bert.py:196-205)

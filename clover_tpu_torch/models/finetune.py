@@ -96,7 +96,7 @@ class CloverFinetune(nn.Module):
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CloverFinetune: no CUDA device for the default device='cuda'; "
                                "pass device='cpu' to build the model on the CPU")
-        self.config, self.dtype = config, dtype
+        self.config, self.dtype, self.kernels = config, dtype, kernels
         cfg, D = config, config.fusion.hidden_size
         with device:
             self.backbone = SwinTransformer3D(cfg.swin, kernels)

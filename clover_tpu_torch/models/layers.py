@@ -17,7 +17,8 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
-from clover_tpu_torch.ops.layer_norm import fused_layer_norm, layer_norm_plain
+from clover_tpu_torch.ops import library
+from clover_tpu_torch.ops.layer_norm import layer_norm_plain
 
 
 class Linear(nn.Linear):
@@ -42,9 +43,10 @@ class LayerNorm(nn.Module):
 
     ``kernel=True`` marks the sites the JAX package runs through its fused
     LayerNorm kernel (``LayerNormAuto`` with ``fwd_only``, i.e. outside
-    training); they go through ``fused_layer_norm`` in eval mode and plain
-    in training, as there. The other sites (e.g. the projector norms) stay
-    plain, as in the reference."""
+    training); they go through the K4 op (``library.k4_layer_norm``:
+    ``fused_layer_norm`` on the card) in eval mode and plain in training, as
+    there. The other sites (e.g. the projector norms) stay plain, as in the
+    reference."""
 
     def __init__(self, dim: int, eps: float = 1e-5, kernel: bool = False):
         super().__init__()
@@ -54,8 +56,9 @@ class LayerNorm(nn.Module):
         self.kernel = kernel
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        fn = fused_layer_norm if self.kernel and not self.training else layer_norm_plain
-        return fn(x, self.weight, self.bias, self.eps)
+        if self.kernel and not self.training:
+            return library.k4_layer_norm(x, self.weight, self.bias, self.eps)
+        return layer_norm_plain(x, self.weight, self.bias, self.eps)
 
 
 class Mlp(nn.Module):

@@ -21,6 +21,9 @@ forward-only LayerNorm sites (kernel K4, eval only) and, at large windows
 (``SwinConfig.fused_attn``), the fused LN1+attention+proj+residual half
 (kernel K6) in place of LN1, qkv, K1 and proj; in training through
 ``FusedAttnBlockFn``, whose backward recomputes the half through K1 and K5.
+In eval every kernel is reached through its registered op
+(``ops.library``, ``torch.ops.clover.*``), which ``torch.export`` keeps as
+one node; in training the autograd Functions call the wrappers directly.
 In training (``train()`` mode) DropPath is drawn per sample from the
 generator passed to ``forward``, and the relative-position bias comes from
 the table at every block so that it gets a gradient. Layout is
@@ -33,7 +36,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import weakref
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -50,16 +52,9 @@ from clover_tpu_torch.models.layers import (
     remat,
     trunc_normal_,
 )
-from clover_tpu_torch.ops.attn_block import (
-    FusedAttnBlockFn,
-    fused_window_attn_block,
-    window_attn_block_plain,
-)
-from clover_tpu_torch.ops.mlp_block import (
-    FusedLnMlpResidualFn,
-    fused_ln_mlp_residual,
-    ln_mlp_residual_plain,
-)
+from clover_tpu_torch.ops import library
+from clover_tpu_torch.ops.attn_block import FusedAttnBlockFn, window_attn_block_plain
+from clover_tpu_torch.ops.mlp_block import FusedLnMlpResidualFn, ln_mlp_residual_plain
 from clover_tpu_torch.ops.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from clover_tpu_torch.ops.window_attention import (
     HeadsWindowAttentionFn,
@@ -78,6 +73,7 @@ Tuple3 = Tuple[int, int, int]
 ATTENTION_IMPLS = ("auto", "pallas_flat", "pallas", "pallas_fused", "fused_block",
                    "xla_headloop", "xla")
 LONG_ATTN_N = 384   # long_attn's windows: the 32-frame 8x7x7 (N=392), as fused_attn 'auto'
+TERMS = "__terms"   # swin_bias_cache: a block's bias in its kernel's layout under name + TERMS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -286,19 +282,29 @@ def k1_terms_from_table(table: torch.Tensor, full_window: Tuple3, eff_window: Tu
 def swin_bias_cache(backbone: "SwinTransformer3D", cfg: SwinConfig,
                     token_dims: Tuple3) -> Dict[str, torch.Tensor]:
     """Every block's (nH, N, N) fp32 relative-position bias for the post-embed
-    token dims (D', H', W'). Eval-only: computed once per checkpoint and
-    passed to the forward as ``bias_cache``."""
+    token dims (D', H', W'), and under ``name + TERMS`` the same bias in the
+    layout its eval route's kernel reads (:meth:`SwinBlock3D.terms_layout`;
+    none where the route lays out its own). Eval-only: computed once per
+    checkpoint and passed to the forward as ``bias_cache``, so no eval call
+    lays a bias out, and a traced forward holds both as constants."""
     dims = tuple(token_dims)
     cache = {}
     with torch.no_grad():
         for i_stage in range(len(cfg.depths)):
             window = effective_window(dims, cfg.window_size)
+            N = int(np.prod(window))
+            resident = backbone.resident(dims)
             for i_blk in range(cfg.depths[i_stage]):
                 name = f"stage_{i_stage}_block_{i_blk}"
-                attn = getattr(backbone, name).attn
-                cache[name] = bias_from_table(attn.relative_position_bias_table,
-                                              cfg.window_size, window,
-                                              cfg.num_heads[i_stage])
+                block = getattr(backbone, name)
+                bias = bias_from_table(block.attn.relative_position_bias_table,
+                                       cfg.window_size, window, cfg.num_heads[i_stage])
+                cache[name] = bias
+                kind = block.terms_layout(dims, resident)
+                if kind == "k1":
+                    cache[name + TERMS] = fragment_bias(bias, N, key_tiles(N))
+                elif kind == "heads":
+                    cache[name + TERMS] = bias_terms(bias, N)
             if i_stage < len(cfg.depths) - 1:
                 dims = (dims[0], -(-dims[1] // 2), -(-dims[2] // 2))
     return cache
@@ -308,8 +314,8 @@ def bias_cache_builder(cfg: SwinConfig):
     """Callable form for the eval loops (the JAX ``bias_cache_builder``):
     ``build(model, token_dims)`` -> ``swin_bias_cache(model.backbone, cfg,
     token_dims)``. A loop calls it at its first batch, so each eval builds
-    the cache, and the kernels' layouts kept with it, from the parameters
-    the model holds at that time."""
+    the cache, the kernels' layouts with it, from the parameters the model
+    holds at that time."""
     return lambda model, token_dims: swin_bias_cache(model.backbone, cfg, token_dims)
 
 
@@ -352,6 +358,13 @@ def shift_attn_mask(padded_size: Tuple3, window: Tuple3,
         return None
     diff = wins[:, None, :] - wins[:, :, None]
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+def flat_long_attn(long_attn: str, N: int) -> str:
+    """The flat route's key-tiled long-window kernel (K11) at windows of N
+    tokens under ``SwinConfig.long_attn``: 'v6' / 'v7' from LONG_ATTN_N
+    tokens, else 'off' (K1)."""
+    return long_attn if N >= LONG_ATTN_N else "off"
 
 
 def fused_attn_enabled(mode: str, N: int) -> bool:
@@ -444,12 +457,11 @@ class WindowAttention3D(nn.Module):
     Hp, Wp, C) the spatial grid ('pallas_fused' K10, the mask as a (gd, gh,
     gw, N, N) grid). K9 and K10 take their terms in accumulator order: the
     mask's from the caller (``mask_terms``, a device constant), the bias's
-    laid out here, and kept in eval while the same bias tensor comes back
-    (the eval bias cache hands each block the same one every forward;
-    :meth:`_kept`). K1 and K5 take theirs the same way: a given (cached)
-    bias's laid out once and kept in eval, else gathered from the table once
-    a call (:func:`k1_terms_from_table`), shared by K1 and K5 (which gathers
-    its transposed form from them). ``attn_drop``: the probabilities'
+    from the eval bias cache (``terms``, laid out once by
+    :func:`swin_bias_cache`), else laid out here. K1 and K5 take theirs the
+    same way: the cache's, else gathered from the table once a call
+    (:func:`k1_terms_from_table`), shared by K1 and K5 (which gathers its
+    transposed form from them). ``attn_drop``: the probabilities'
     dropout rate in training, on the 'xla' route only (the block picks it
     when the rate is above 0)."""
 
@@ -464,42 +476,27 @@ class WindowAttention3D(nn.Module):
         self.proj = Linear(dim, dim)
         table_len = int(np.prod([2 * w - 1 for w in self.full_window]))
         self.relative_position_bias_table = nn.Parameter(torch.zeros(table_len, num_heads))
-        self._bias_terms = None   # (weakref to the bias, its terms) of the last eval call
-        self._k1_bias = None      # the same for K1's terms
         self._table_ext = None    # K1's table gather's buffer (table_ext)
 
     def init_weights(self, generator: torch.Generator) -> None:
         trunc_normal_(self.relative_position_bias_table, generator)
 
-    def _terms(self, bias: torch.Tensor, mask_terms: Optional[torch.Tensor], N: int):
-        """(bias terms, mask terms) for K9 / K10 on the card, else None."""
+    def _terms(self, bias: torch.Tensor, mask_terms: Optional[torch.Tensor], N: int,
+               given: Optional[torch.Tensor] = None):
+        """(bias terms, mask terms) for K9 / K10: the ``given`` (cached)
+        bias terms, else on the card the bias laid out here, else None."""
+        if given is not None:
+            return given, mask_terms
         if not (self.kernels and bias.is_cuda):
             return None
-        return self._kept("_bias_terms", bias, lambda b: bias_terms(b, N)), mask_terms
-
-    def _kept(self, slot: str, bias: torch.Tensor, lay_out):
-        """``lay_out(bias)``, kept in ``slot`` in eval while the same bias
-        tensor comes back and lives: the module holds the bias weakly and
-        drops the result with it, and keeps nothing from a training call."""
-        memo = None if self.training else getattr(self, slot)
-        if memo is None or memo[0]() is not bias:
-            with torch.no_grad():
-                memo = (weakref.ref(bias, lambda ref: self._forget(slot, ref)), lay_out(bias))
-        setattr(self, slot, None if self.training else memo)
-        return memo[1]
-
-    def _forget(self, slot: str, ref) -> None:
-        """Drop what ``slot`` keeps with the bias it was laid out from."""
-        memo = getattr(self, slot)
-        if memo is not None and memo[0] is ref:
-            setattr(self, slot, None)
+        with torch.no_grad():
+            return bias_terms(bias, N), mask_terms
 
     def k1_terms(self, bias: torch.Tensor, given: bool, eff_window: Tuple3):
         """K1's terms for ``WindowAttentionFn`` (K5 gathers its transposed
-        form from them), or None with ``kernels=False``. A ``given`` bias
-        (the eval cache) is laid out once and its terms kept in eval
-        (:meth:`_kept`); else they are gathered from the table through the
-        module's kept buffer."""
+        form from them), or None with ``kernels=False``: a ``given`` bias
+        laid out (a cache without its layout), else gathered from the table
+        through the module's kept buffer."""
         if not self.kernels:
             return None
         if not given:
@@ -508,42 +505,75 @@ class WindowAttention3D(nn.Module):
                 self._table_ext = table_ext(table)
             return k1_terms_from_table(table, self.full_window, eff_window, self._table_ext)
         N = bias.shape[-1]
-        return self._kept("_k1_bias", bias, lambda b: fragment_bias(b, N, key_tiles(N)))
+        with torch.no_grad():
+            return fragment_bias(bias, N, key_tiles(N))
 
     def forward(self, x: torch.Tensor, eff_window: Tuple3, mask: Optional[torch.Tensor] = None,
                 bias: Optional[torch.Tensor] = None, impl: str = "pallas_flat",
                 long_attn: str = "off", mask_terms: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                terms: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``terms``: the cached bias's layout for the route's kernel
+        (:func:`swin_bias_cache`), or None to lay it out here. In eval with
+        the kernels every route goes through its registered op."""
         N = int(np.prod(eff_window))
         given = bias is not None
         if bias is None:
             bias = bias_from_table(self.relative_position_bias_table, self.full_window,
                                    tuple(eff_window), self.num_heads)
         qkv = self.qkv(x)
+        ops = self.kernels and not self.training
         if x.ndim == 2:
-            long_attn = long_attn if N >= LONG_ATTN_N else "off"
+            long_attn = flat_long_attn(long_attn, N)
             # K1 reads the terms in the forward, K5 in the backward (K11 lays its own out)
-            terms = (self.k1_terms(bias, given, eff_window)
-                     if long_attn == "off" or self.training else None)
+            if terms is None and (long_attn == "off" or self.training):
+                terms = self.k1_terms(bias, given, eff_window)
+            if ops:
+                return self.proj(self._flat_ops(qkv, bias, mask, N, long_attn, terms))
             return self.proj(WindowAttentionFn.apply(qkv, bias, mask, self.scale, self.num_heads,
                                                      N, self.kernels, long_attn, terms))
         nH, hd = self.num_heads, self.dim // self.num_heads
         if x.ndim == 5:
-            out = SpatialWindowAttentionFn.apply(qkv.view(*x.shape[:4], 3, nH, hd), bias, mask,
-                                                 tuple(eff_window), self.scale, self.kernels,
-                                                 self._terms(bias, mask_terms, N))
+            qkv5, pair = qkv.view(*x.shape[:4], 3, nH, hd), self._terms(bias, mask_terms, N, terms)
+            if ops:
+                out = library.k10_window_attention_grid(qkv5, bias, mask, list(eff_window),
+                                                        self.scale, *(pair or (None, None)))
+            else:
+                out = SpatialWindowAttentionFn.apply(qkv5, bias, mask, tuple(eff_window),
+                                                     self.scale, self.kernels, pair)
             return self.proj(out.reshape(x.shape))
         if impl == "pallas":
             # the head relayout and back are PyTorch copies, as on the TPU
             q, k, v = heads_from_flat(qkv.view(-1, 3 * self.dim), nH, N)
-            out = HeadsWindowAttentionFn.apply(q, k, v, bias, mask, self.scale, self.kernels,
-                                               self._terms(bias, mask_terms, N))
+            pair = self._terms(bias, mask_terms, N, terms)
+            if ops:
+                out = library.k9_window_attention_heads(q, k, v, bias, mask, self.scale,
+                                                        *(pair or (None, None)))
+            else:
+                out = HeadsWindowAttentionFn.apply(q, k, v, bias, mask, self.scale,
+                                                   self.kernels, pair)
             out = flat_from_heads(out).view(x.shape)
         else:
             drop = self.attn_drop if self.training else 0.0
             out = _xla_attention(qkv, bias, mask, self.scale, nH, impl == "xla_headloop", drop,
                                  generator)
         return self.proj(out)
+
+    def _flat_ops(self, qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+                  N: int, long_attn: str, terms: Optional[torch.Tensor]) -> torch.Tensor:
+        """The flat route in eval through the registered ops, the bias
+        rounded to qkv's dtype as ``WindowAttentionFn`` rounds it: K1 on
+        ``terms``, or under ``long_attn`` K11 on the flat qkv ('v7') or
+        head-major after a relayout ('v6')."""
+        bias = bias.to(qkv.dtype)
+        if long_attn == "v7":
+            return library.k11_flash_attention_flat(qkv, bias, mask, self.scale, self.num_heads,
+                                                    N)
+        if long_attn == "v6":
+            q, k, v = heads_from_flat(qkv, self.num_heads, N)
+            return flat_from_heads(library.k11_flash_attention_heads(q, k, v, bias, mask,
+                                                                     self.scale))
+        return library.k1_window_attention(qkv, bias, mask, self.scale, self.num_heads, N, terms)
 
 
 def _xla_attention(qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
@@ -636,6 +666,27 @@ class SwinBlock3D(nn.Module):
             return "pallas_flat"
         return self.attention_impl
 
+    def _fused(self, impl: str, N: int) -> bool:
+        """Does a window-resident call take the fused half-block (K6)?"""
+        return (impl in ("pallas_flat", "pallas") and not self._plain_drops()
+                and (fused_attn_enabled(self.fused_attn, N)
+                     or self.attention_impl == "fused_block"))
+
+    def terms_layout(self, dims: Tuple3, resident: bool) -> Optional[str]:
+        """The layout of the cached bias this block's attention reads in
+        eval at stage token dims ``dims`` (window-``resident`` or spatial):
+        'k1' (``fragment_bias``, K1), 'heads' (``bias_terms``, K9 / K10), or
+        None (K6 and K11 lay theirs out; the plain routes read none)."""
+        if not self.kernels:
+            return None
+        impl = self._resolve_impl()
+        N = int(np.prod(effective_window(dims, self.window_size)))
+        if resident and self._fused(impl, N):
+            return None
+        if impl == "pallas_flat":
+            return "k1" if flat_long_attn(self.long_attn, N) == "off" else None
+        return "heads" if impl in ("pallas", "pallas_fused") else None
+
     def _mask(self, impl: str, dims: Tuple3, window: Tuple3, shift: Tuple3, device):
         """The shift mask in the form ``impl``'s route takes: region ids on
         the flat route, else the additive (nW, N, N) mask; and, for K9 and
@@ -650,19 +701,20 @@ class SwinBlock3D(nn.Module):
         return _device_constant("mask", *key), terms
 
     def forward(self, x: torch.Tensor, dims: Tuple3, bias: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                bias_layout: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, nW*N, C) window-resident tokens of a stage of token dims
-        ``dims``, or (B, D, H, W, C) on the spatial path (``dims`` unused)."""
+        ``dims``, or (B, D, H, W, C) on the spatial path (``dims`` unused).
+        ``bias_layout``: the cached bias in the layout of
+        :meth:`terms_layout`, or None."""
         if x.ndim == 5:
-            return self._spatial_call(x, bias, generator)
+            return self._spatial_call(x, bias, generator, bias_layout)
         impl = self._resolve_impl()
         window, shift = effective_window(dims, self.window_size, self.shift_size)
         B, L, C = x.shape
         N = int(np.prod(window))
         do_shift = any(s > 0 for s in shift)
-        fused = (impl in ("pallas_flat", "pallas") and not self._plain_drops()
-                 and (fused_attn_enabled(self.fused_attn, N)
-                      or self.attention_impl == "fused_block"))
+        fused = self._fused(impl, N)
         mask = terms = None
         if do_shift:
             x = _apply_window_perm(x, dims, window, shift, inverse=False)
@@ -674,7 +726,7 @@ class SwinBlock3D(nn.Module):
             xn = self.norm1(x)
             xn = xn.reshape(-1, C) if impl == "pallas_flat" else xn.reshape(-1, N, C)
             attn = self.attn(xn, window, mask, bias, impl, self.long_attn, terms,
-                             generator).view(B, L, C)
+                             generator, bias_layout).view(B, L, C)
             x = x + self.drop_path(dropout(attn, self.drop, generator, self.training), generator)
         x = self._mlp_half(x, generator)
         if do_shift:
@@ -682,7 +734,8 @@ class SwinBlock3D(nn.Module):
         return x
 
     def _spatial_call(self, x: torch.Tensor, bias: Optional[torch.Tensor],
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator],
+                      bias_layout: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The spatial block path on x (B, D, H, W, C): LN1, zero pad to whole
         windows after the norm, roll by -shift, attention on the windows of
         the padded grid (partitioned, or read in place by K10 under
@@ -705,11 +758,12 @@ class SwinBlock3D(nn.Module):
         if impl == "pallas_fused":
             grid = None if mask is None else mask.view(
                 *(p // w for p, w in zip(padded, window)), N, N)
-            out = self.attn(xn, window, grid, bias, impl, mask_terms=terms)
+            out = self.attn(xn, window, grid, bias, impl, mask_terms=terms, terms=bias_layout)
         else:
             xw = window_partition(xn, window)
             xw = xw.reshape(-1, C) if impl == "pallas_flat" else xw
-            out = self.attn(xw, window, mask, bias, impl, self.long_attn, terms, generator)
+            out = self.attn(xw, window, mask, bias, impl, self.long_attn, terms, generator,
+                            bias_layout)
             out = window_reverse(out.view(-1, N, C), window, B, *padded)
         if do_shift:
             out = torch.roll(out, shift, (1, 2, 3))
@@ -722,7 +776,7 @@ class SwinBlock3D(nn.Module):
                          region_ids: Optional[torch.Tensor], bias: Optional[torch.Tensor],
                          generator: Optional[torch.Generator]) -> torch.Tensor:
         """x + s * proj(window_attention(LN1(x))) from norm1's and attn's
-        parameters: in eval one call of K6 (its plain version with
+        parameters: in eval one call of the K6 op (the plain version with
         ``kernels=False``), s = 1; in training ``FusedAttnBlockFn`` with s
         DropPath's per-sample factor repeated over the sample's windows (the
         JAX block's (B,) -> (Bn,) row scale)."""
@@ -739,7 +793,7 @@ class SwinBlock3D(nn.Module):
         args = (x.reshape(-1, C), self.norm1.weight, self.norm1.bias, attn.qkv.weight, bqkv,
                 bias, region_ids, attn.proj.weight, attn.proj.bias)
         if not self.training:
-            op = fused_window_attn_block if self.kernels else window_attn_block_plain
+            op = library.k6_window_attn_block if self.kernels else window_attn_block_plain
             return op(*args, attn.scale, attn.num_heads, N, self.norm1.eps).view(B, L, C)
         row_scale = None
         if self.drop_path.active():
@@ -761,7 +815,7 @@ class SwinBlock3D(nn.Module):
         args = (x.reshape(-1, C), self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
         if not self.training:
-            op = fused_ln_mlp_residual if self.kernels else ln_mlp_residual_plain
+            op = library.k2_ln_mlp_residual if self.kernels else ln_mlp_residual_plain
             return op(*args, 1e-5, self.gelu).view(x.shape)
         row_scale = None
         if self.drop_path.active():
@@ -922,6 +976,16 @@ class SwinTransformer3D(nn.Module):
         if self.cfg.mask_token:
             trunc_normal_(self.mask_token, generator)
 
+    def resident(self, dims: Tuple3) -> bool:
+        """Does the stage of token dims ``dims`` keep its tokens partitioned
+        into windows (partition once, reverse once)? Else its blocks take
+        (B, D, H, W, C) and pad, roll and partition each."""
+        cfg = self.cfg
+        window = effective_window(dims, cfg.window_size)
+        return ((cfg.window_resident or cfg.attention_impl == "fused_block")
+                and cfg.attention_impl != "pallas_fused"
+                and not any(d % w for d, w in zip(dims, window)))
+
     def forward(self, x: torch.Tensor, bias_cache: Optional[Dict[str, torch.Tensor]] = None,
                 generator: Optional[torch.Generator] = None,
                 token_mask: Optional[torch.Tensor] = None, mode: str = "full"):
@@ -946,23 +1010,21 @@ class SwinTransformer3D(nn.Module):
             B, D, H, W, C = x.shape
             dims = (D, H, W)
             window = effective_window(dims, cfg.window_size)
-            # a resident stage partitions once and reverses once; the others'
-            # blocks take (B, D, H, W, C) and pad, roll and partition each
-            resident = ((cfg.window_resident or cfg.attention_impl == "fused_block")
-                        and cfg.attention_impl != "pallas_fused"
-                        and not any(d % w for d, w in zip(dims, window)))
+            resident = self.resident(dims)
             if resident:
                 x = window_partition(x, window).reshape(B, -1, C)
             checkpointed = cfg.remat_stage(i_stage) and torch.is_grad_enabled()
             for i_blk in range(depth):
                 name = f"stage_{i_stage}_block_{i_blk}"
-                blk_bias = bias_cache.get(name) if bias_cache is not None else None
+                blk_bias = layout = None
+                if bias_cache is not None:
+                    blk_bias, layout = bias_cache.get(name), bias_cache.get(name + TERMS)
                 block = getattr(self, name)
                 if checkpointed:
-                    x = remat(functools.partial(block, dims=dims, bias=blk_bias), x,
-                              generator=generator)
+                    x = remat(functools.partial(block, dims=dims, bias=blk_bias,
+                                                bias_layout=layout), x, generator=generator)
                 else:
-                    x = block(x, dims, blk_bias, generator)
+                    x = block(x, dims, blk_bias, generator, layout)
             if resident:
                 x = window_reverse(x.reshape(-1, int(np.prod(window)), C), window, B, D, H, W)
             if i_stage < len(cfg.depths) - 1:

@@ -1,8 +1,11 @@
 """Ops of the port: each kernel wrapper, its plain PyTorch version, and the
 CUDA build (``_build``). A wrapper launches its kernel for a CUDA tensor and
 runs the plain version only for a CPU tensor; its ``launches`` attribute
-counts kernel launches."""
+counts kernel launches. Importing the package registers the eval kernels as
+torch ops (``library``: ``torch.ops.clover.*``), which the eval forward and
+an exported graph call."""
 
+from clover_tpu_torch.ops import library  # noqa: F401  (registers torch.ops.clover.*)
 from clover_tpu_torch.ops.attn_block import (  # noqa: F401
     FusedAttnBlockFn,
     fused_window_attn_block,

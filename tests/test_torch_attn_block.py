@@ -27,6 +27,7 @@ import torch
 from clover_tpu_torch import ops
 from clover_tpu_torch.models import swin3d as pswin
 from clover_tpu_torch.ops import attn_block as pab
+from clover_tpu_torch.ops import window_attention as pwa
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 # (token dims, window, shift): a shifted block of the 8-frame-shaped tiny
@@ -186,14 +187,15 @@ def test_block_fused_on_equals_off(shifted):
 @pytest.mark.parametrize("dims,fused", [((16, 14, 14), True), ((4, 14, 14), False)])
 def test_auto_takes_the_fused_branch_from_384_tokens(dims, fused, monkeypatch):
     """'auto' runs the half-block at the 8x7x7 window (N=392) and the
-    unfused path at 4x7x7 (N=196); shown by which function the block calls
-    (launch counts stay 0 on the CPU)."""
+    unfused path at 4x7x7 (N=196); shown by which plain version the eval
+    block's op reaches on the CPU (the K6 op's, or the K1 op's), as launch
+    counts stay 0 there."""
     calls = []
-    real = pswin.window_attn_block_plain
+    real, real_k1 = pswin.window_attn_block_plain, pwa.window_attention_plain
     monkeypatch.setattr(pab, "window_attn_block_plain",
                         lambda *a, **k: calls.append("fused") or real(*a, **k))
-    monkeypatch.setattr(pswin.WindowAttentionFn, "apply",
-                        lambda *a: calls.append("unfused") or ops.window_attention_plain(*a[:6]))
+    monkeypatch.setattr(pwa, "window_attention_plain",
+                        lambda *a: calls.append("unfused") or real_k1(*a))
     block = _tiny_block("auto", shifted=True)
     with torch.no_grad():
         block(_tokens(dims), dims)

@@ -22,8 +22,6 @@ shifted and unshifted) and skip without a card:
 ``python -m pytest tests/test_torch_k1_plan.py -m gpu --noconftest``.
 """
 
-import gc
-
 import numpy as np
 import pytest
 import torch
@@ -200,12 +198,18 @@ def _clip(frames=4, size=56):
 
 
 def _spy(monkeypatch, seen):
-    """Record (bias, terms) at each K1 and K5 wrapper call, then run it."""
-    fwd, bwd = wa.flat2_window_attention, wa.flat2_window_attention_bwd
+    """Record (bias, terms) at each K1 and K5 wrapper call and each K1 op
+    call (the eval route), then run it."""
+    fwd, bwd, op = wa.flat2_window_attention, wa.flat2_window_attention_bwd, \
+        pswin.library.k1_window_attention
 
     def k1(qkv2, bias, region_ids, scale, num_heads, N, terms=None):
         seen.append(("K1", bias, terms))
         return fwd(qkv2, bias, region_ids, scale, num_heads, N, terms)
+
+    def k1_op(qkv2, bias, region_ids, scale, num_heads, N, terms):
+        seen.append(("K1", bias, terms))
+        return op(qkv2, bias, region_ids, scale, num_heads, N, terms)
 
     def k5(qkv2, bias, region_ids, g2, scale, num_heads, N, terms=None):
         seen.append(("K5", bias, terms))
@@ -213,6 +217,7 @@ def _spy(monkeypatch, seen):
 
     monkeypatch.setattr(wa, "flat2_window_attention", k1)
     monkeypatch.setattr(wa, "flat2_window_attention_bwd", k5)
+    monkeypatch.setattr(pswin.library, "k1_window_attention", k1_op)
 
 
 def _step(model, x):
@@ -256,31 +261,28 @@ def test_train_step_hands_k1_and_k5_the_wrapper_layout(fused_attn, monkeypatch):
 
 
 def test_eval_keeps_k1_terms_with_the_cached_bias(monkeypatch):
-    """In eval with the bias cache, K1 gets the cached bias's layout, the
-    same tensor in a second forward; a new cache gets a new layout; the
-    layout is dropped with the last cache."""
+    """In eval with the bias cache, K1 gets the layout the cache carries
+    (``swin_bias_cache`` lays each K1 block's bias out once, under its name
+    + TERMS): that tensor itself in every forward, equal to
+    ``fragment_bias`` of the cached bias; a new cache gives its own."""
     model, x = _tiny_swin(), _clip()
     model.eval()
     seen = []
     _spy(monkeypatch, seen)
     cache = pswin.swin_bias_cache(model, model.cfg, (2, 14, 14))
+    names = [k for k in cache if not k.endswith(pswin.TERMS)]
+    assert len(names) == 4 and all(n + pswin.TERMS in cache for n in names)
     with torch.inference_mode():
         model(x, bias_cache=cache)
         model(x, bias_cache=cache)
         fresh_cache = {k: v.clone() for k, v in cache.items()}
         model(x, bias_cache=fresh_cache)
     assert len(seen) == 12
-    for first, again, fresh in zip(seen[:4], seen[4:8], seen[8:]):
+    for name, first, again, fresh in zip(names, seen[:4], seen[4:8], seen[8:]):
         N = first[1].shape[-1]
-        assert torch.equal(first[2], wa.fragment_bias(first[1], N, wa.key_tiles(N)))
-        assert again[2] is first[2] and fresh[2] is not first[2]
-        assert torch.equal(fresh[2], first[2])
-    # the module holds the bias weakly: its terms go with the last cache
-    attns = [m for m in model.modules() if isinstance(m, pswin.WindowAttention3D)]
-    assert all(a._k1_bias is not None for a in attns)
-    del cache, fresh_cache, seen, first, again, fresh
-    gc.collect()
-    assert all(a._k1_bias is None for a in attns)
+        assert first[2] is cache[name + pswin.TERMS] and again[2] is first[2]
+        assert fresh[2] is fresh_cache[name + pswin.TERMS]
+        assert torch.equal(first[2], wa.fragment_bias(cache[name], N, wa.key_tiles(N)))
 
 
 # ------------------------------------------------------------- the card

@@ -146,8 +146,11 @@ def _run_isolated(code):
 
 def test_port_imports_no_jax():
     """Importing clover_tpu_torch and running the tiny slice through the eval
-    loop leaves jax, and every module of the JAX package (clover_tpu and
-    clover_tpu.*), out of sys.modules."""
+    loop, then converting seeded published-schema checkpoints
+    (``tools/convert_checkpoint.py``) and exporting, saving and loading the
+    serving bundle (``serving.py``, the ``clover::*`` ops), leaves jax, and
+    every module of the JAX package (clover_tpu and clover_tpu.*), out of
+    sys.modules."""
     code = textwrap.dedent("""
         import sys, types
         import numpy as np, torch
@@ -174,13 +177,31 @@ def test_port_imports_no_jax():
             types.SimpleNamespace(text_video_ids=[[i] for i in range(4)]), iter(batches),
             bias_cache=lambda m, dims: swin_bias_cache(m.backbone, cfg.swin, dims))
         assert np.isfinite(metrics["Recall@1"]), metrics
+        import tempfile
+        from clover_tpu_torch.serving import export_retrieval_towers, load_bundle, save_bundle
+        from clover_tpu_torch.tools import convert_checkpoint, dress_rehearsal
+        swin = {k: v.numpy() for k, v in dress_rehearsal.synth_swin2d_state_dict(
+            embed=64, depths=(2, 2, 2, 2), heads=(2, 4, 8, 16)).items()}
+        bert = {k: v.numpy() for k, v in dress_rehearsal.synth_hf_bert_state_dict(
+            hidden=64, layers=2, intermediate=256).items()}
+        params = convert_checkpoint.convert(swin, bert, inflate_2d=True, depths=(2, 2, 2, 2),
+                                            bert_layers=2, fusion_layers=1)
+        assert {k.split(".")[0] for k in params} >= {"backbone", "text_backbone"}
+        out = save_bundle(export_retrieval_towers(model, batch_sizes=(1,), frames=4,
+                                                  image_size=112, text_len=8, sim_candidates=2),
+                          tempfile.mkdtemp())
+        fns = load_bundle(out)
+        v = fns["video_tower_b1"](torch.zeros((1, 4, 112, 112, 3), dtype=torch.uint8))
+        assert v.shape == (1, 768) and bool(torch.isfinite(v).all())
     """)
     _run_isolated(code)
 
 
 def test_chip_smoke_and_every_port_module_import_nothing_of_jax():
     """A bare ``import chip_smoke`` plus an import of every module of
-    clover_tpu_torch leaves jax and the JAX package out of sys.modules."""
+    clover_tpu_torch (the serving, conversion and op-library modules and
+    the export, convert and dress-rehearsal entries among them) leaves jax
+    and the JAX package out of sys.modules."""
     _run_isolated(textwrap.dedent("""
         import importlib, pkgutil, sys
         import chip_smoke
@@ -188,4 +209,8 @@ def test_chip_smoke_and_every_port_module_import_nothing_of_jax():
         for mod in pkgutil.walk_packages(clover_tpu_torch.__path__, "clover_tpu_torch."):
             importlib.import_module(mod.name)
         assert "clover_tpu_torch.ops.attn_block" in sys.modules
+        assert {"clover_tpu_torch.serving", "clover_tpu_torch.models.convert",
+                "clover_tpu_torch.ops.library", "clover_tpu_torch.tools.export",
+                "clover_tpu_torch.tools.convert_checkpoint",
+                "clover_tpu_torch.tools.dress_rehearsal"} <= set(sys.modules)
     """))

@@ -81,8 +81,8 @@ def test_forward_test_matches_jax_at_32_frames(slice32, cached_bias, monkeypatch
     imgs, tok, mask = slice32.inputs
     pm = slice32.pm
     n = []
-    real = pswin.fused_window_attn_block
-    monkeypatch.setattr(pswin, "fused_window_attn_block",
+    real = pswin.library.k6_window_attn_block    # the eval route's K6 op
+    monkeypatch.setattr(pswin.library, "k6_window_attn_block",
                         lambda *a, **k: n.append(a[11]) or real(*a, **k))
     cache = swin_bias_cache(pm.backbone, pm.config.swin, imgs.shape[2:5]) if cached_bias else None
     with torch.inference_mode():

@@ -438,17 +438,17 @@ def test_spatial_kernel_on_card(cuda, B, dims, window, shift, nH, wild):
 
 @pytest.mark.gpu
 def test_attention_keeps_its_bias_terms_in_eval_on_card(cuda):
-    """The model lays out K9 / K10's bias terms once per bias tensor in eval
-    (the bias cache's), and anew for every call in training."""
+    """K9 / K10 read the bias terms the eval cache carries (that tensor
+    itself); without them the model lays the bias out for the call, in eval
+    and in training alike."""
     attn = pswin.WindowAttention3D(64, (2, 7, 7), 2).to(cuda)
     bias = _f32(np.random.default_rng(24), (2, 98, 98), cuda)
-    first = attn.eval()._terms(bias, None, 98)
-    assert attn._terms(bias, None, 98)[0] is first[0]
-    assert torch.equal(first[0], pwa.bias_terms(bias, 98))
-    assert attn._terms(bias.clone(), None, 98)[0] is not first[0]
-    attn.train()
-    assert attn._terms(bias, None, 98)[0] is not attn._terms(bias, None, 98)[0]
-    assert attn._bias_terms is None
+    cached = pwa.bias_terms(bias, 98)
+    assert attn.eval()._terms(bias, None, 98, cached)[0] is cached
+    first = attn._terms(bias, None, 98)
+    assert torch.equal(first[0], cached)
+    assert attn._terms(bias, None, 98)[0] is not first[0]
+    assert torch.equal(attn.train()._terms(bias, None, 98)[0], cached)
 
 
 @pytest.mark.gpu

@@ -37,10 +37,9 @@ from clover_tpu_torch.engine.optim import cosine_warmup_schedule, linear_anneali
 from clover_tpu_torch.losses import norm_softmax_loss, retrieval_loss, total_loss
 from clover_tpu_torch.models import (BertConfig, CloverFinetune, FinetuneConfig, SwinConfig,
                                      load_jax_params, opt_state_from_jax, state_from_jax)
-from clover_tpu_torch.models import bert as pbert
-from clover_tpu_torch.models import layers as players
 from clover_tpu_torch.models import swin3d as pswin
 from clover_tpu_torch.models.bridge import jax_leaf_paths
+from clover_tpu_torch.ops import library
 from test_torch_bridge import BERT, SWIN, random_jax_params, tiny_inputs
 
 LR, TOTAL, WARMUP, CLIP = 1e-3, 20, 2, 1.0   # the 3-step runs' optimizer and clip
@@ -297,11 +296,12 @@ def test_ema_momentum_schedule_matches_jax(kind):
 
 def test_train_mode_routes_through_the_autograd_functions(train_run, monkeypatch):
     """In train() mode every Swin block's attention goes through
-    WindowAttentionFn and its MLP half through FusedLnMlpResidualFn; the
-    LayerNorm (K4) and BERT FFN (K3) wrappers are not called. In eval mode
-    the attention still goes through WindowAttentionFn (one route in both
-    modes), the MLP half does not, and K4's and K3's wrappers are called."""
-    calls = {"attn": 0, "mlp": 0, "K4": 0, "K3": 0}
+    WindowAttentionFn and its MLP half through FusedLnMlpResidualFn; no
+    registered op (``torch.ops.clover.*``) is called, so neither the
+    LayerNorm (K4) nor the BERT FFN (K3). In eval mode neither autograd
+    Function is called: every kernel site goes through its op (K1, K2, K3,
+    K4)."""
+    calls = {"attn": 0, "mlp": 0}
 
     def counting(key, fn):
         def wrapped(*a, **k):
@@ -317,16 +317,18 @@ def test_train_mode_routes_through_the_autograd_functions(train_run, monkeypatch
 
     monkeypatch.setattr(pswin, "WindowAttentionFn", Attn)
     monkeypatch.setattr(pswin, "FusedLnMlpResidualFn", Mlp)
-    monkeypatch.setattr(players, "fused_layer_norm", counting("K4", players.fused_layer_norm))
-    monkeypatch.setattr(pbert, "fused_mlp_postln", counting("K3", pbert.fused_mlp_postln))
     pm = _port_model(train_run["params"]).train()
     batch = _torch_batch(train_run["batches"][0])
+    library.reset_call_counts()
     pm.forward_train(batch, torch.Generator())
-    assert calls == {"attn": 8, "mlp": 8, "K4": 0, "K3": 0}
+    assert calls == {"attn": 8, "mlp": 8}
+    assert not any(library.call_counts().values())
     with torch.no_grad():
         pm.eval().forward_test(batch["imgs"], batch["token_ids"], batch["input_mask"])
-    assert calls["attn"] == 16 and calls["mlp"] == 8
-    assert calls["K3"] == 2 and calls["K4"] == 1 + 8 + 3 + 1 + 3
+    assert calls == {"attn": 8, "mlp": 8}
+    ops = {k: n for k, n in library.call_counts().items() if n}
+    assert ops == {"k1_window_attention": 8, "k2_ln_mlp_residual": 8, "k3_mlp_postln": 2,
+                   "k4_layer_norm": 1 + 8 + 3 + 1 + 3}
 
 
 def test_dropout_in_training_needs_a_generator(train_run):

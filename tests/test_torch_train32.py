@@ -394,8 +394,9 @@ def _tokens(B=2, C=64, seed=4):
 def test_train_mode_routes_through_the_fused_fn_and_eval_through_one_k6_call(monkeypatch):
     """train(): the fused branch calls FusedAttnBlockFn once per block in the
     forward and WindowAttentionFn once in its backward (the recompute); no
-    K6 wrapper call carries autograd. eval(): one call of the K6 wrapper, no
-    FusedAttnBlockFn, no WindowAttentionFn, and an output without a graph."""
+    K6 wrapper call carries autograd. eval(): one call of the K6 op (its
+    registered form, ``library.k6_window_attn_block``), no FusedAttnBlockFn,
+    no WindowAttentionFn, and an output without a graph."""
     calls = []
 
     def counting(key, fn):
@@ -408,9 +409,9 @@ def test_train_mode_routes_through_the_fused_fn_and_eval_through_one_k6_call(mon
                         counting("fused_fn", pswin.FusedAttnBlockFn.apply))
     monkeypatch.setattr(pab.WindowAttentionFn, "apply",
                         counting("attn_fn", pab.WindowAttentionFn.apply))
-    monkeypatch.setattr(pswin, "fused_window_attn_block",
-                        counting("K6", pswin.fused_window_attn_block))
     monkeypatch.setattr(pab, "fused_window_attn_block", counting("K6", pab.fused_window_attn_block))
+    monkeypatch.setattr(pswin.library, "k6_window_attn_block",
+                        counting("K6 op", pswin.library.k6_window_attn_block))
     block = _tiny_block(shifted=True).train()
     x = _tokens().requires_grad_()
     out = block(x, DIMS, generator=torch.Generator().manual_seed(0))
@@ -423,7 +424,7 @@ def test_train_mode_routes_through_the_fused_fn_and_eval_through_one_k6_call(mon
     block.eval()
     with torch.no_grad():
         out = block(_tokens(), DIMS)
-    assert calls == ["K6"] and not out.requires_grad
+    assert calls == ["K6 op"] and not out.requires_grad
 
 
 def test_drop_path_row_scale_is_one_draw_per_sample(monkeypatch):
