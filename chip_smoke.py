@@ -3,7 +3,7 @@
 pretrain, QA / FIB and ITM paths, its train / test entry points and its
 serving bundles on one CUDA card.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--dp8]
 
 Phases, in order; any failure raises and exits non-zero:
 
@@ -137,6 +137,25 @@ Phases, in order; any failure raises and exits non-zero:
    clips/s, the checkpoints' seconds and bytes, the per-step metric sync's
    cost, peak memory; the temporary work dir removed whether it passes or
    not;
+8m'. DP8, data parallel through the train entry: `torchrun --standalone
+   --nproc_per_node=W` (W the visible cards) runs clover_tpu_torch.tools.train
+   --distributed (NCCL, one process a card) on TR8's config and options,
+   TR8's 8 steps of 16 global clips (W ranks of 16 / W) and one eval of
+   64 videos at the end, the best checkpoint only; each rank counts its
+   launches (a step K1 / K5 / K2S 24, an eval forward TR8's), then 2 more
+   steps under torch.profiler for the NCCL time a step, and the gradient
+   reduction alone (CUDA events). At W = 1 every
+   step's loss and grad_norm bitwise TR8's and the eval line equal; at W >=
+   2 step 1's (the one step from the same weights) within 1e-3 relative,
+   every step's gap and the eval printed, the eval equal to the test entry's
+   on rank 0's best checkpoint (one process, the same weights, at the ranks'
+   eval batch), and the run again in fp32 through the model's plain
+   versions (the kernels take bf16) on W ranks and on one: every step's loss
+   and grad_norm within 1e-4 relative; the ranks' parameters equal after
+   the steps; only rank 0's work dir holds metrics.jsonl and the checkpoint;
+   clips/s beside TR8's, the NCCL ms a step beside the all-reduce's bound,
+   the phase's seconds against its budget of 60 (torchrun's start-up
+   included; printed, not a failure);
 8n. SRV, serving bundles of the retrieval towers (clover_tpu_torch/serving.py):
    the dress rehearsal's main (tools/dress_rehearsal.py: its synthetic
    image-Swin-B and BERT-base state dicts converted by
@@ -186,6 +205,7 @@ Nothing here imports JAX: the JAX package is the reference of the CPU tests.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -337,13 +357,30 @@ ITM_EMBED_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
 # resume to 3. A step launches K1 / K5 / K2S 24, an eval forward K1 24, K2 24,
 # K3 12, K4 42 (the text tower's 12 post-LN FFNs and 42 LayerNorms)
 TR8_CONFIG = os.path.join("configs", "exp", "rehearsal_retrieval_fullsize.py")
+TR8_VAL_BATCH = 32
 TR8_OPTIONS = ("model.dtype=bfloat16", "total_epochs=2", "log_interval=1",
                "checkpoint.max_to_keep=1", "data.train.n_videos=64",
                "data.train_loader.batch_size=16", "data.val.n_videos=64",
-               "data.val_loader.batch_size=32")
+               f"data.val_loader.batch_size={TR8_VAL_BATCH}")
 TR8_CLIPS, TR8_STEPS_PER_EPOCH, TR8_FORWARDS_PER_EVAL = 16, 4, 2
 TR8_STEP_LAUNCHES = {"K1": 24, "K5": 24, "K2S": 24}
 TR8_FORWARD_LAUNCHES = {"K1": 24, "K2": 24, "K3": 12, "K4": 42}
+# DP8 (phase 8m'): TR8's run through the train entry's --distributed under
+# torchrun, one process a visible card: TR8's options and LR schedule (2
+# epochs), the eval at the end only and the best checkpoint only (a save
+# costs 3-7 s); each rank's batch 16 / W clips. Against TR8's first run:
+# bitwise at W = 1; at W >= 2 step 1 within DP8_LOSS_RTOL (later steps drift:
+# the bf16 GEMMs round differently at 16 / W rows, and AdamW amplifies it:
+# 2.2e-3 by step 4 at W = 4 on the H100), the eval equal to the test entry's
+# on the same weights at the ranks' eval batch (each forward the same
+# shapes), and DP8_FP32_OPTIONS (fp32, the plain versions, no eval or save)
+# on W ranks against one process, every step within DP8_FP32_RTOL. The gradient
+# all-reduce's bound: 2 (W - 1) / W x the fp32 gradient bytes over one
+# card's NVLink rate, 450 GB/s each way (H100 SXM, NVLink 4: 18 links)
+DP8_OPTIONS = TR8_OPTIONS + ("evaluation.interval=2", "checkpoint.interval=3")
+DP8_FP32_OPTIONS = DP8_OPTIONS + ("model.dtype=float32", "evaluation.interval=3")
+DP8_FP32_RTOL = 1e-4
+DP8_LOSS_RTOL, DP8_PROFILE_STEPS, DP8_SECONDS_MAX, NVLINK_BYTES = 1e-3, 2, 60.0, 450e9
 # SRV (phase 8n): serving bundles of the retrieval towers (serving.py). The
 # dress rehearsal (tools/dress_rehearsal.py, its main at a batch of 2): its
 # synthetic image-Swin-B and BERT-base state dicts in their published key
@@ -1200,6 +1237,7 @@ PROFILE_FAMILIES = (   # (family, substrings of the kernel name), first match wi
     ("K2 / K3 MLP fc2 GEMM + K3 finish", ("mlp_fc2_pass", "postln_finish")),
     ("K7 / K8 recompute MLP backward, passes", ("k7_",)),
     ("K4 LayerNorm", ("layer_norm_kernel",)),
+    ("NCCL collectives", ("nccl",)),
     ("GEMMs (cuBLAS)", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "sm80")),
     ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
     ("reductions, softmax, norms", ("reduce", "softmax", "norm")),
@@ -2176,7 +2214,8 @@ def tr8_phase(dev, card):
     (its metrics equal the trainer's eval line); three train-loader epochs
     through one prefetch_to_device call, its pinned slots and the recycled
     host buffers both reused (bitwise the synchronous copies); the per-step metric sync's cost on a staged batch.
-    -> the first run's launch counts."""
+    -> the first run's launch counts and its metrics.jsonl lines (train
+    lines, eval lines by step)."""
     import shutil
     import tempfile
 
@@ -2217,6 +2256,7 @@ def tr8_phase(dev, card):
         check_launches("TR8 train entry (8 steps, 2 evals of 2 forwards)", counts,
                        tr8_launches(2), 1, "run")
         train, evals = tr8_lines(work)
+        first = (train, evals)
         check(len(train) == 2 * TR8_STEPS_PER_EPOCH
               and [r["step"] for r in train] == list(range(1, 9))
               and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in train),
@@ -2370,6 +2410,260 @@ def tr8_phase(dev, card):
           f"checkpoint saves, host snapshot + write s: "
           f"{[(round(sv['snapshot_s'], 3), round(sv['write_s'], 3)) for sv in saves]} of "
           f"{saves[0]['bytes'] / 2**30:.3f} GiB each on {card}", flush=True)
+    return counts, first
+
+
+# DP8's rank program, run under torchrun from a temporary file: sys.argv[1:]
+# = the repo root, rank 0's work dir, the profiled steps (0: none), "plain"
+# for the model's plain versions (else "kernels"), the config, its options
+DP8_RANK = """
+import json, os, sys, time
+t_start, wall_start = time.perf_counter(), time.time()
+import torch
+import torch.distributed as dist
+from torch.autograd import DeviceType
+root, work, steps, route, config, *options = sys.argv[1:]
+steps = int(steps)
+sys.path.insert(0, root)
+from chip_smoke import launch_counts
+from clover_tpu_torch import ops
+from clover_tpu_torch.config import load_config, parse_cfg_options
+from clover_tpu_torch.engine import to_model_batch
+from clover_tpu_torch.parallel import all_reduce_grads, mesh
+from clover_tpu_torch.tools import train as train_entry
+from clover_tpu_torch.utils.logging import get_logger
+
+if route == "plain":
+    # the fp32 run: the kernels take bf16 only, so the model runs its plain
+    # PyTorch versions; the data-parallel code is the same
+    import functools
+    from clover_tpu_torch import builder
+    builder.CloverFinetune = functools.partial(builder.CloverFinetune, kernels=False)
+torch.backends.cuda.matmul.allow_tf32 = False   # as chip_smoke's main sets for TR8
+torch.backends.cudnn.allow_tf32 = False
+rank = int(os.environ["RANK"])
+get_logger().setLevel("WARNING" if rank else "INFO")
+# rank 0 in the work dir, every other rank in one of its own: only rank 0 may write
+mine = work if rank == 0 else os.path.join(work, "rank" + str(rank))
+ops.reset_launch_counts()
+t0 = time.perf_counter()
+import_s = t0 - t_start
+trainer = train_entry.main([config, "--distributed", "--work-dir", mine, "--cfg-options",
+                            *options])
+torch.cuda.synchronize()
+t1 = time.perf_counter()
+counts = launch_counts()
+params = list(trainer.state.model.parameters())
+out = {"rank": mesh.rank(), "world": mesh.world(), "import_s": import_s, "train_s": t1 - t0,
+       "wall_start": wall_start, "launches": counts,
+       "grad_bytes": sum(p.numel() * p.element_size() for p in params)}
+if steps:
+    # the NCCL device time a step: the trainer's (warm) step on this rank's first
+    # batch, `steps` steps under torch.profiler (the device's activity only:
+    # a step's ~10k host ops would take seconds to collect)
+    cfg = load_config(config, overrides=parse_cfg_options(options))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = to_model_batch(next(iter(trainer.train_loaders[0].epoch(0))), cfg.img_size,
+                           torch.bfloat16, dev)
+    step, state, gen = trainer.train_steps[0], trainer.state, trainer.generator
+    mesh.barrier()   # the ranks start the window together: no NCCL wait for a late rank
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(state, batch, gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    # the gradient reduction alone (its flat buckets' copies and NCCL), the ranks
+    # started together: a step's NCCL kernels above also hold the wait for the
+    # slowest rank's backward
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    mesh.barrier()
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(steps):
+        all_reduce_grads(params, mesh.data_group())
+    end.record()
+    torch.cuda.synchronize()
+    out.update(nccl_ms=sum(e.time_range.elapsed_us() for e in nccl) / 1e3 / steps,
+               nccl_launches=len(nccl) / steps, reduce_ms=start.elapsed_time(end) / steps,
+               busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+# every rank's parameters after the steps, one fp64 sum a tensor: the replicas
+# must hold the same bits (one reduction, one update)
+sums = torch.stack([p.detach().double().sum() for p in params]).cpu().tolist()
+every = [None] * mesh.world()
+dist.all_gather_object(every, sums)
+out.update(replicas_equal=all(e == every[0] for e in every),
+           profile_s=time.perf_counter() - t1)
+primary = mesh.is_primary()
+trainer.metrics.close()
+dist.destroy_process_group()
+if primary:
+    out["wall_end"] = time.time()
+    print("DP8 " + json.dumps(out), flush=True)
+"""
+
+
+def dp8_torchrun(root, work, name, world, steps, route, options):
+    """``torchrun --standalone --nproc_per_node=world`` of DP8's rank program
+    (written in ``work``) with rank 0's work dir ``work/name``, in a session of
+    its own so that a timeout ends torchrun and its ranks. -> (rank 0's
+    result, its work dir, the seconds from the launch to torchrun's exit)."""
+    import signal
+
+    script, run_dir = os.path.join(work, "dp8_rank.py"), os.path.join(work, name)
+    if not os.path.exists(script):
+        with open(script, "w") as f:
+            f.write(DP8_RANK)
+    t0, wall0 = time.perf_counter(), time.time()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={world}", script, root, run_dir, str(steps), route,
+         os.path.join(root, TR8_CONFIG), *options],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        log, _ = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    seconds = time.perf_counter() - t0
+    check(proc.returncode == 0, f"DP8 {name}: torchrun exited {proc.returncode}:\n{log[-6000:]}")
+    found = [line[line.index("DP8 {") + 4:] for line in log.splitlines() if "DP8 {" in line]
+    check(len(found) == 1, f"DP8 {name} printed no result:\n{log[-6000:]}")
+    res = json.loads(found[0])
+    res["start_s"] = res["wall_start"] - wall0
+    check(res["world"] == world, f"DP8 {name} ran {res['world']} ranks, not {world}")
+    check(res["replicas_equal"], f"DP8 {name}: the ranks' parameters differ after the steps")
+    return res, run_dir, seconds
+
+
+def step_gaps(tag, lines, want_lines):
+    """Each train line's (loss, grad_norm) relative gaps to ``want_lines``'
+    at the same step, printed. -> [(step, loss gap, grad_norm gap)]."""
+    check([r["step"] for r in lines] == [r["step"] for r in want_lines] == list(range(1, 9)),
+          f"{tag} steps {[r['step'] for r in lines]} against {[r['step'] for r in want_lines]}")
+    out = []
+    for r, want in zip(lines, want_lines):
+        gaps = [abs(r[k] - want[k]) / abs(want[k]) for k in ("loss", "grad_norm")]
+        print(f"{tag} step {r['step']}: loss {r['loss']!r} grad_norm {r['grad_norm']!r}; "
+              f"against {want['loss']!r} {want['grad_norm']!r} (gaps {gaps[0]:.3e}, "
+              f"{gaps[1]:.3e})", flush=True)
+        out.append((r["step"], *gaps))
+    return out
+
+
+def dp8_phase(card, tr8_first):
+    """DP8: TR8's run as a data-parallel job, ``torchrun --standalone
+    --nproc_per_node=W`` of the train entry with --distributed (NCCL) on
+    every visible card, in a temporary work dir removed at the end. Rank 0's
+    metrics.jsonl against TR8's first run (``tr8_first``: its train lines,
+    its eval lines by step): bitwise at W = 1, step 1 within DP8_LOSS_RTOL
+    at W >= 2; launches a step and an eval forward as TR8's; the ranks'
+    parameters equal; the other ranks' work dirs empty. At W >= 2 also the
+    eval against the test entry's on the same weights, and the fp32 run on
+    W ranks against one process (``DP8_FP32_OPTIONS``). -> rank 0's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from clover_tpu_torch.tools import test as test_entry
+
+    world = torch.cuda.device_count()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="clover_dp8_")
+    t0 = time.perf_counter()
+    try:
+        res, run_dir, seconds = dp8_torchrun(root, work, "run", world, DP8_PROFILE_STEPS,
+                                             "kernels", DP8_OPTIONS)
+        print(f"DP8 seconds: torchrun {seconds:.2f} (torchrun and a rank's start "
+              f"{res['start_s']:.2f}, rank 0's imports {res['import_s']:.2f}, its "
+              f"train entry {res['train_s']:.2f}, its profiled steps "
+              f"{res['profile_s']:.2f}, then torchrun's exit {time.time() - res['wall_end']:.2f}; "
+              f"{'within' if seconds <= DP8_SECONDS_MAX else 'over'} the phase's budget of "
+              f"{DP8_SECONDS_MAX:.0f}) on {card}", flush=True)
+        counts = {k: res["launches"][k] for k in launch_counts()}
+        check_launches(f"DP8 train entry, --distributed at W={world} (rank 0: 8 steps, "
+                       "1 eval of 2 forwards)", counts,
+                       {k: 8 * TR8_STEP_LAUNCHES.get(k, 0) + TR8_FORWARDS_PER_EVAL
+                        * TR8_FORWARD_LAUNCHES.get(k, 0)
+                        for k in set(TR8_STEP_LAUNCHES) | set(TR8_FORWARD_LAUNCHES)}, 1, "run")
+        train, evals = tr8_lines(run_dir)
+        tr8_train, tr8_evals = tr8_first
+        check(sorted(evals) == [8], f"DP8 eval lines at steps {sorted(evals)}")
+        gaps = step_gaps(f"DP8 at W={world} against TR8,", train, tr8_train)
+        got = {k: v for k, v in evals[8].items() if k not in ("step", "time")}
+        want = {k: v for k, v in tr8_evals[8].items() if k not in ("step", "time")}
+        if world == 1:
+            check(all(r[k] == w[k] for r, w in zip(train, tr8_train)
+                      for k in ("loss", "grad_norm")), f"DP8 at W=1 differs from TR8: {gaps}")
+            check(got == want, f"DP8 eval {got}, TR8's at step 8 {want}")
+        else:
+            # the one step from the same weights: the bf16 GEMMs' rounding at 16 / W
+            # rows a rank, which every later AdamW step amplifies
+            check(max(gaps[0][1:]) <= DP8_LOSS_RTOL,
+                  f"DP8 step 1 gaps {gaps[0][1:]} > {DP8_LOSS_RTOL}")
+        ckpt = os.path.join(run_dir, "checkpoints")
+        others = sorted(d for d in os.listdir(run_dir) if d.startswith("rank"))
+        check(os.path.exists(os.path.join(ckpt, "step_0000000008"))
+              and os.path.exists(os.path.join(ckpt, "best.json"))
+              and others == [f"rank{r}" for r in range(1, world)]
+              and all(os.listdir(os.path.join(run_dir, d)) == ["checkpoints"]
+                      and not os.listdir(os.path.join(run_dir, d, "checkpoints"))
+                      for d in others),
+              f"DP8 artifacts: {sorted(os.listdir(ckpt))}, other ranks {others}")
+        cps = [TR8_CLIPS * r["steps_per_sec"] for r in train if r["epoch"] == 1][1:]
+        tr8_cps = [TR8_CLIPS * r["steps_per_sec"] for r in tr8_train if r["epoch"] == 1][1:]
+        ar_bytes = 2 * (world - 1) / world * res["grad_bytes"]
+        print(f"DP8 at W={world}: eval {got}, TR8's at step 8 {want}; train clips/s (16 "
+              f"global clips a step, epoch 2 but its first step) "
+              f"{[round(c, 2) for c in cps]}, mean {np.mean(cps):.2f}, "
+              f"TR8's {[round(c, 2) for c in tr8_cps]}, mean {np.mean(tr8_cps):.2f} on {card}",
+              flush=True)
+        print(f"DP8 NCCL a step (rank 0, {DP8_PROFILE_STEPS} profiled steps): "
+              f"{res['nccl_ms']:.3f} ms in {res['nccl_launches']:.1f} kernels of "
+              f"{res['busy_ms']:.2f} ms busy; the gradient reduction alone (CUDA events, "
+              f"the ranks started together) {res['reduce_ms']:.3f} ms; its bound "
+              f"{ar_bytes / NVLINK_BYTES * 1e3:.3f} ms ({ar_bytes / 1e9:.3f} GB of "
+              f"{res['grad_bytes'] / 1e9:.3f} GB fp32 gradients over {NVLINK_BYTES / 1e9:.0f} "
+              f"GB/s); peak {res['peak_gib']:.2f} GiB on {card}", flush=True)
+        if world > 1:
+            # the eval's gathers and loader shards: one process on the same
+            # weights, each forward at the ranks' shapes, equal metrics
+            t1 = time.perf_counter()
+            per_rank = -(-TR8_VAL_BATCH // world)
+            one = test_entry.main([os.path.join(root, TR8_CONFIG), "--ckpt-dir", ckpt,
+                                   "--step", "8", "--cfg-options", *DP8_OPTIONS,
+                                   f"data.val_loader.batch_size={per_rank}"])
+            print(f"DP8 eval at W={world} {got}; the test entry in one process on rank 0's "
+                  f"step 8, {per_rank} clips a forward, {one} "
+                  f"({time.perf_counter() - t1:.2f} s)", flush=True)
+            check(one == got, f"DP8 eval at W={world} {got}, one process {one}")
+            gc.collect()
+            torch.cuda.empty_cache()   # the fp32 run at W = 1 shares this card
+            # the contract without the bf16 rounding: fp32 through the plain
+            # versions, W ranks against one process, every step
+            fp32 = {}
+            for n in (world, 1):
+                r, d, sec = dp8_torchrun(root, work, f"fp32_w{n}", n, 0, "plain",
+                                         DP8_FP32_OPTIONS)
+                check(not any(r["launches"].values()),
+                      f"DP8 fp32 at W={n} launched kernels: {r['launches']}")
+                fp32[n] = tr8_lines(d)[0]
+                print(f"DP8 fp32 (plain versions) at W={n}: {sec:.2f} s", flush=True)
+            gaps = step_gaps(f"DP8 fp32 at W={world} against W=1,", fp32[world], fp32[1])
+            worst = max(max(g[1:]) for g in gaps)
+            print(f"DP8 fp32 at W={world}: largest gap {worst:.3e} (limit {DP8_FP32_RTOL})",
+                  flush=True)
+            check(worst <= DP8_FP32_RTOL,
+                  f"DP8 fp32 at W={world}: gaps {gaps} > {DP8_FP32_RTOL}")
+        print(f"DP8 seconds: phase {time.perf_counter() - t0:.2f} on {card}", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return counts
 
 
@@ -2466,7 +2760,6 @@ def srv_phase(dev, card):
     ops' host cost a call); then the 32-frame towers through the export
     entry. The temporary work dir is removed whether it passes or not. ->
     (launch counts over the 8-frame serve, over the 32-frame batch)."""
-    import gc
     import shutil
     import tempfile
 
@@ -2708,7 +3001,11 @@ def main(argv=None) -> int:
                          "P8E too), F12R's steps, E8F's forwards, Q8M's steps, Q8O's and FIB's "
                          "forwards and the ITM score calls with torch.profiler and print the "
                          "device time by kernel family")
-    profile = ap.parse_args(argv).profile
+    ap.add_argument("--dp8", action="store_true",
+                    help="build the kernels and run TR8 and DP8 alone (DP8 holds TR8's run): "
+                         "the data-parallel check, on every visible card")
+    args = ap.parse_args(argv)
+    profile = args.profile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script measures the card only",
               file=sys.stderr)
@@ -2733,6 +3030,15 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 0:.1f} s, "
           f"{_build.library_path().name})", flush=True)
+    ok = json.dumps({"ok": True, "device": {"platform": "gpu",
+                                            "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}})
+    if args.dp8:
+        _, tr8_first = tr8_phase(dev, card)
+        print(card_line(), flush=True)
+        dp8_phase(card, tr8_first)
+        print(ok)
+        return 0
 
     cfg = FinetuneConfig(swin=SwinConfig.base(fold_normalize=True), text_bert=BertConfig())
     results = kernel_phase(cfg, dev)
@@ -2858,7 +3164,11 @@ def main(argv=None) -> int:
 
     # TR8: the config-driven trainer and evaluator through the port's entry points
     print(card_line(), flush=True)
-    tr8_counts = tr8_phase(dev, card)
+    tr8_counts, tr8_first = tr8_phase(dev, card)
+
+    # DP8: TR8's run data parallel under torchrun, one process a visible card
+    print(card_line(), flush=True)
+    dp8_counts = dp8_phase(card, tr8_first)
 
     # SRV: serving bundles of the retrieval towers (eval8's kernels; the
     # 32-frame towers' K6-K4 at B=8 timed here)
@@ -2941,6 +3251,12 @@ def main(argv=None) -> int:
              for k in ("K1", "K5", "K2S")]
     rows += [(k, results, tr8_counts, f"TR8 (train entry's eval), ms per forward, {tr8_run}",
               sources) for k in ("K1", "K2", "K3", "K4")]
+    dp8_run = ("rank 0's launches through the train entry with --distributed (8 steps, "
+               "2 eval forwards)")
+    rows += [(k, pre, dp8_counts, f"DP8 (data parallel), ms per step, {dp8_run}", sources)
+             for k in ("K1", "K5", "K2S")]
+    rows += [(k, results, dp8_counts, f"DP8 (data parallel eval), ms per forward, {dp8_run}",
+              sources) for k in ("K1", "K2", "K3", "K4")]
     # SRV serves eval8's shapes (phase 3's times); SRV32 the 32-frame towers at B=8
     rows += [(k, results, srv_counts, f"SRV (served bundle, 8 frames), ms per forward, "
               f"launches over {SRV_BATCHES} forwards of the loaded artifacts", sources)
@@ -2958,9 +3274,7 @@ def main(argv=None) -> int:
               **{extra: res[k][extra] for extra in ("layout_ms", "alone_ms") if extra in res[k]}}
              for k, res, n, path, src in rows]
     print(json.dumps({"kernels": table}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}))
+    print(ok)
     return 0
 
 

@@ -167,13 +167,22 @@ def build_dataset(ds_cfg: Dict[str, Any], tokenizer: Optional[BertTokenizer]):
 
 
 def build_loader(dataset, loader_cfg: Dict[str, Any], test: bool = False,
-                 seed: int = 0) -> DataLoader:
+                 seed: int = 0, rank: int = 0, world_size: int = 1) -> DataLoader:
+    """The config's loader on rank ``rank`` of ``world_size``: its
+    ``batch_size`` is the global batch, of which each rank loads its
+    rank-strided slice (``ShardedSampler``): ``batch_size // world_size``
+    rows in training (the train entry checks that it divides,
+    ``parallel.data_axis_size``), the ceiling of it in a test-mode loader,
+    which pads the last batch rather than dropping it."""
     cfg = dict(loader_cfg)
+    batch_size = cfg.get("batch_size", 8)
     return DataLoader(
         dataset,
-        batch_size=cfg.get("batch_size", 8),
+        batch_size=-(-batch_size // world_size) if test else batch_size // world_size,
         shuffle=not test,
         num_workers=cfg.get("num_workers", 4),
+        rank=rank,
+        world_size=world_size,
         drop_last=not test,
         seed=seed,
         prefetch=cfg.get("prefetch", 2),

@@ -14,6 +14,12 @@ copy. A save is written under a temporary name and renamed into place, as
 orbax does, so a reader never sees half a checkpoint; it is read back with
 ``torch.load(weights_only=True)``. Directory layout as in the JAX package:
 ``step_%010d/``, ``meta_%010d.json``, ``best.json``.
+
+Data parallel (``group``, the ranks of one run on one shared directory):
+rank 0 alone takes the snapshot and writes; every rank then waits at a
+barrier, so that no rank reads or exits before the write is in place. The
+best-metric state is rank 0's, broadcast when the manager is made, and every
+rank updates it from the same (gathered) eval metrics; every rank restores.
 """
 
 from __future__ import annotations
@@ -27,6 +33,9 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from clover_tpu_torch.parallel.collectives import rank, world
 
 _STATE_FILE = "state.pt"
 _STEP_DIR = re.compile(r"^step_(\d{10})$")
@@ -118,23 +127,39 @@ def restore_or_init(model: torch.nn.Module, pretrained: Dict[str, torch.Tensor],
 
 class CheckpointManager:
     def __init__(self, directory: str, max_to_keep: int = 3,
-                 async_save: bool = False):
+                 async_save: bool = False, group=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
         self.async_save = async_save
+        self.group = group
+        self.primary = rank(group) == 0
         self._inflight: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
-        # one record a finished save: step, host-snapshot and write seconds, bytes
+        # one record a finished save (rank 0's): step, host-snapshot and
+        # write seconds, bytes
         self.saves: List[Dict[str, float]] = []
-        # best-metric state cached in memory (one process: read from disk)
+        # best-metric state cached in memory, so that every rank decides the
+        # same is_best; rank 0's best.json, broadcast (every rank makes its
+        # manager at the same point of the run)
         self._best = self._read_best()
 
     def _read_best(self) -> Optional[Dict[str, Any]]:
-        if os.path.exists(self._best_file()):
+        best = None
+        if self.primary and os.path.exists(self._best_file()):
             with open(self._best_file()) as f:
-                return json.load(f)
-        return None
+                best = json.load(f)
+        if world(self.group) > 1:
+            box = [best]
+            dist.broadcast_object_list(box, src=0, group=self.group)
+            best = box[0]
+        return best
+
+    def _barrier(self) -> None:
+        """Rank 0's write finished, then every rank of the group past here."""
+        if world(self.group) > 1:
+            self._wait()
+            dist.barrier(group=self.group)
 
     def _wait(self):
         if self._inflight is not None:
@@ -166,9 +191,12 @@ class CheckpointManager:
         async_save=True the disk write runs on a background thread so the
         train loop keeps stepping."""
         self._wait()
-        t0 = time.perf_counter()
-        payload = _state_payload(state)
-        return self._write(int(state.step), payload, time.perf_counter() - t0, meta)
+        if self.primary:
+            t0 = time.perf_counter()
+            payload = _state_payload(state)
+            self._write(int(state.step), payload, time.perf_counter() - t0, meta)
+        self._barrier()
+        return self._path(int(state.step))
 
     def save_params(self, params: Dict[str, torch.Tensor],
                     meta: Optional[Dict[str, Any]] = None) -> str:
@@ -176,9 +204,12 @@ class CheckpointManager:
         optimizer state; a converted one, tools/convert_checkpoint.py): what
         ``restore_params`` and a config's ``load_from`` read."""
         self._wait()
-        payload = {"step": 0, "params": {n: _host_copy(t) for n, t in params.items()},
-                   "buffers": {}}
-        return self._write(0, payload, 0.0, meta)
+        if self.primary:
+            payload = {"step": 0, "params": {n: _host_copy(t) for n, t in params.items()},
+                       "buffers": {}}
+            self._write(0, payload, 0.0, meta)
+        self._barrier()
+        return self._path(0)
 
     def _write(self, step: int, payload: Dict[str, Any], snapshot_s: float,
                meta: Optional[Dict[str, Any]]) -> str:
@@ -258,7 +289,8 @@ class CheckpointManager:
     def update_best(self, step: int, key: str, value: float,
                     greater_is_better: bool = True) -> bool:
         """Track the best eval metric; returns True if this step is new best
-        (reference eval-hook best-ckpt logic, my_eval_hook.py:666-736)."""
+        (reference eval-hook best-ckpt logic, my_eval_hook.py:666-736). Rank
+        0 writes best.json."""
         best = self._best
         is_best = (
             best is None
@@ -267,8 +299,9 @@ class CheckpointManager:
         )
         if is_best:
             self._best = {"step": step, "key": key, "value": value}
-            with open(self._best_file(), "w") as f:
-                json.dump(self._best, f)
+            if self.primary:
+                with open(self._best_file(), "w") as f:
+                    json.dump(self._best, f)
         return is_best
 
     # ------------------------------------------------------------- load

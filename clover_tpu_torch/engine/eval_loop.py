@@ -1,6 +1,8 @@
-"""Evaluation loops (port of ``clover_tpu/engine/eval_loop.py``), single
-process (the JAX ``_host_gather`` is the identity there), host
-space-to-depth or RGB batches:
+"""Evaluation loops (port of ``clover_tpu/engine/eval_loop.py``) on host
+space-to-depth or RGB batches, in one process or data parallel: with a
+process ``group`` each rank runs its rank-strided shard of the loader and
+``_host_gather`` gives every rank the whole result set (the identity in one
+process), so every rank computes the same metrics:
 
 - ``run_retrieval_eval``: dual-tower R@K;
 - ``run_itm_retrieval_eval``: the full-fusion ITM text -> video recall on
@@ -10,9 +12,9 @@ space-to-depth or RGB batches:
 - ``run_zeroshot_action_eval``: the nearest class-name embedding;
 - ``run_qa_eval``: argmax accuracy over the QA scores.
 
-Each loop drops the sampler's padding duplicates by dataset index and sorts
-by it; the metrics are the port's own numpy copies
-(``clover_tpu_torch/evaluation/metrics.py``).
+Each loop gathers its per-batch results, drops the sampler's padding
+duplicates by dataset index and sorts by it; the metrics are the port's own
+numpy copies (``clover_tpu_torch/evaluation/metrics.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,25 @@ from clover_tpu_torch.evaluation.metrics import (
 )
 from clover_tpu_torch.models.swin3d import embed_dims
 from clover_tpu_torch.ops.preprocess import eval_preprocess
+from clover_tpu_torch.parallel.collectives import all_gather_rows, comm_device, world
+
+
+def _host_gather(*arrays, group=None):
+    """Every rank's rows of each numpy array concatenated in rank order,
+    ragged-safe: the ranks exchange their row counts, pad to the largest,
+    gather and strip each rank's padding (the JAX ``_host_gather``'s
+    pad-and-count protocol, ``collectives.all_gather_rows``), so per-rank
+    result counts may differ. The identity in one process. -> the arrays (one
+    array for one)."""
+    if world(group) == 1:
+        return arrays if len(arrays) > 1 else arrays[0]
+    dev = comm_device(group)
+    host = [np.ascontiguousarray(a) for a in arrays]
+    # bool as uint8: the collectives move numbers
+    tensors = [torch.from_numpy(a.view(np.uint8) if a.dtype == bool else a).to(dev) for a in host]
+    out = [g.cpu().numpy() for g in all_gather_rows(tensors, group)]
+    out = [g.view(bool) if a.dtype == bool else g for g, a in zip(out, host)]
+    return out if len(out) > 1 else out[0]
 
 
 def _dedup_order(indices: np.ndarray) -> np.ndarray:
@@ -91,9 +112,10 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _embeddings(eval_step: Callable, model: torch.nn.Module, loader_iter, bias_cache,
-                out_size: int, dtype):
+                out_size: int, dtype, group=None):
     """The dual-tower embeddings of every entry and its ``video_index``,
-    deduplicated and in index order. -> (v, t, vids) numpy."""
+    gathered over ``group``, deduplicated and in index order. -> (v, t, vids)
+    numpy."""
     vs, ts, idx, vids = [], [], [], []
     for (v, t), index, (vid,) in _run_steps(eval_step, model, loader_iter, bias_cache,
                                             out_size, dtype, ("video_index",)):
@@ -101,13 +123,13 @@ def _embeddings(eval_step: Callable, model: torch.nn.Module, loader_iter, bias_c
         ts.append(_host(t))
         idx.append(index)
         vids.append(vid)
-    return _dedup_sort(np.concatenate(idx), np.concatenate(vs), np.concatenate(ts),
-                       np.concatenate(vids))
+    v, t, idx, vids = _host_gather(*map(np.concatenate, (vs, ts, idx, vids)), group=group)
+    return _dedup_sort(idx, v, t, vids)
 
 
 def run_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
                        bias_cache=None, out_size: int = 224,
-                       dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+                       dtype: torch.dtype = torch.float32, group=None) -> Dict[str, float]:
     """Dual-tower retrieval eval -> R@K metrics.
 
     ``eval_step(imgs, token_ids, input_mask, bias_cache) -> (v_emb, t_emb)``
@@ -119,9 +141,11 @@ def run_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loa
     ``input_mask``, ``index`` and ``video_index``. ``bias_cache`` is a
     ``swin_bias_cache`` dict or a callable ``(model, token_dims) -> dict``
     built at the first batch with the patch embed's token dims.
-    ``dataset.text_video_ids`` lists each video's captions.
+    ``dataset.text_video_ids`` lists each video's captions. ``group``: the
+    data-parallel group whose ranks each iterate their shard of the loader
+    (None: one process).
     """
-    v, t, vids = _embeddings(eval_step, model, loader_iter, bias_cache, out_size, dtype)
+    v, t, vids = _embeddings(eval_step, model, loader_iter, bias_cache, out_size, dtype, group)
     captions_per_video = [len(ids) for ids in dataset.text_video_ids]
     if all(c == 1 for c in captions_per_video):
         return retrieval_recall(video_embd=v, text_embd=t)
@@ -132,7 +156,7 @@ def run_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loa
 def run_itm_retrieval_eval(embed_step: Callable, score_step: Callable, model: torch.nn.Module,
                            dataset, loader_iter, bias_cache=None, out_size: int = 224,
                            dtype: torch.dtype = torch.float32, top_k: Optional[int] = None,
-                           pair_batch: int = 32) -> Dict[str, float]:
+                           pair_batch: int = 32, group=None) -> Dict[str, float]:
     """Full-fusion ITM text -> video retrieval (the reference's non-separate
     test: multimodal_transformer_pretrain.py:220-225 and
     recall_for_itm_t2v_retrieval, video_dataset.py:206-238): every (text,
@@ -160,12 +184,18 @@ def run_itm_retrieval_eval(embed_step: Callable, score_step: Callable, model: to
         masks.append(mask.reshape(len(index), -1))
         idx.append(index)
         vids.append(vid)
-    order = _dedup_order(np.concatenate(idx))
-    v, t, ids, masks, vids = (np.concatenate(a)[order] for a in (vs, ts, ids, masks, vids))
+    tokens = torch.cat(toks)
+    if world(group) > 1:
+        (tokens,) = all_gather_rows([tokens.to(comm_device(group))], group)
+        tokens = tokens.to(device)
+    v, t, ids, masks, idx, vids = _host_gather(
+        *map(np.concatenate, (vs, ts, ids, masks, idx, vids)), group=group)
+    order = _dedup_order(idx)
+    v, t, ids, masks, vids = (a[order] for a in (v, t, ids, masks, vids))
 
     # one token set and tower embedding a video
     first = _first_of_each(vids)
-    video_tokens = torch.cat(toks)[torch.as_tensor(order[first], device=device)]
+    video_tokens = tokens[torch.as_tensor(order[first], device=device)]
     video_emb = v[first]
     n_text, n_video = len(t), len(first)
 
@@ -192,41 +222,45 @@ def run_itm_retrieval_eval(embed_step: Callable, score_step: Callable, model: to
 
 def run_mc_retrieval_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
                           bias_cache=None, out_size: int = 224,
-                          dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+                          dtype: torch.dtype = torch.float32, group=None) -> Dict[str, float]:
     """Multiple choice as retrieval: each video's candidates (its entries'
     captions, ``video_index`` grouping them) scored by tower similarity
-    against ``dataset.labels`` (``eval_step`` as ``run_retrieval_eval``'s)."""
-    v, t, vids = _embeddings(eval_step, model, loader_iter, bias_cache, out_size, dtype)
+    against ``dataset.labels`` (``eval_step`` and ``group`` as
+    ``run_retrieval_eval``'s)."""
+    v, t, vids = _embeddings(eval_step, model, loader_iter, bias_cache, out_size, dtype, group)
     return multiple_choice_retrieval_acc(v[_first_of_each(vids)], t, dataset.labels)
 
 
 def run_zeroshot_action_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
                              class_text_embd: np.ndarray, bias_cache=None, out_size: int = 224,
-                             dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+                             dtype: torch.dtype = torch.float32, group=None) -> Dict[str, float]:
     """Zero-shot action recognition (reference UCF101VideoDataset ->
     recall_for_zeroshot_action_recognition, video_dataset.py:443-513): each
     video's embedding against the class-name embeddings ``class_text_embd``;
-    ``label`` in the batches, 1-indexed."""
+    ``label`` in the batches, 1-indexed; ``group`` as ``run_retrieval_eval``'s."""
     vs, labels, idx = [], [], []
     for (v, _), index, (label,) in _run_steps(eval_step, model, loader_iter, bias_cache,
                                               out_size, dtype, ("label",)):
         vs.append(_host(v))
         labels.append(label)
         idx.append(index)
-    v, labels = _dedup_sort(np.concatenate(idx), np.concatenate(vs), np.concatenate(labels))
+    v, labels, idx = _host_gather(*map(np.concatenate, (vs, labels, idx)), group=group)
+    v, labels = _dedup_sort(idx, v, labels)
     return zeroshot_action_recognition_acc(v, class_text_embd, labels)
 
 
 def run_qa_eval(eval_step: Callable, model: torch.nn.Module, dataset, loader_iter,
                 bias_cache=None, out_size: int = 224,
-                dtype: torch.dtype = torch.float32) -> Dict[str, float]:
+                dtype: torch.dtype = torch.float32, group=None) -> Dict[str, float]:
     """QA / FIB eval: argmax accuracy of ``eval_step``'s (B, num_choices)
-    scores (``make_qa_eval_step``) against each batch's ``label``."""
+    scores (``make_qa_eval_step``) against each batch's ``label``; ``group``
+    as ``run_retrieval_eval``'s."""
     scores, labels, idx = [], [], []
     for s, index, (label,) in _run_steps(eval_step, model, loader_iter, bias_cache, out_size,
                                          dtype, ("label",)):
         scores.append(_host(s))
         labels.append(label)
         idx.append(index)
-    s, y = _dedup_sort(np.concatenate(idx), np.concatenate(scores), np.concatenate(labels))
+    s, y, idx = _host_gather(*map(np.concatenate, (scores, labels, idx)), group=group)
+    s, y = _dedup_sort(idx, s, y)
     return qa_accuracy(s, y)

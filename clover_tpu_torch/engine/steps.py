@@ -5,9 +5,21 @@ mode with dropout drawn from a generator derived from (seed, step) -- the
 counterpart of ``jax.random.fold_in(rng, state.step)`` -- the loss, the
 backward, one global gradient norm that serves both the clip and the
 ``grad_norm`` metric, and the AdamW update. Parameters and optimizer state
-are fp32; the model computes in its own dtype. The eval steps run the model's
-``forward_test`` (retrieval embeddings or QA scores) and the ITM eval's two
-halves, ``encode_visual`` and ``itm_pair_score``, under inference mode.
+are fp32; the model computes in its own dtype. The eval steps run the
+model's ``forward_test`` (retrieval embeddings or QA scores) and the ITM
+eval's two halves, ``encode_visual`` and ``itm_pair_score``, under inference
+mode.
+
+Data parallel (``group``, a process group of the ranks that each hold a
+slice of the global batch; ``parallel.mesh.data_group()``): the losses are
+those of the global batch (``losses/``), each rank's backward gives its share
+of the global gradient, and the shares are summed once a step, one
+``all_reduce`` a flat bucket, before the norm, so that the norm, the clip,
+the logged ``grad_norm`` and the update are the global batch's on every rank.
+Each train-step factory binds the model's BatchNorm layers to its
+``group`` (``BatchNorm.group``: their statistics over the group), so the
+model follows the last factory called on it. Each rank draws its own dropout
+masks (``fold_in`` of the rank; rank 0 draws the one-process masks).
 """
 
 from __future__ import annotations
@@ -20,6 +32,8 @@ import torch
 from clover_tpu_torch.engine.train_state import TrainState
 from clover_tpu_torch.losses import (PretrainLossConfig, pretrain_losses, qa_loss, retrieval_loss,
                                      total_loss)
+from clover_tpu_torch.models.layers import BatchNorm
+from clover_tpu_torch.parallel.collectives import all_reduce_grads, rank
 
 
 def ema_momentum_schedule(kind: str = "constant", base: float = 0.9998,
@@ -39,9 +53,11 @@ def ema_momentum_schedule(kind: str = "constant", base: float = 0.9998,
     return fn
 
 
-def fold_in(generator: torch.Generator, step: int) -> torch.Generator:
-    """A generator on ``generator``'s device seeded from (its seed, step)."""
-    seed = np.random.SeedSequence([generator.initial_seed(), step]).generate_state(1, np.uint64)
+def fold_in(generator: torch.Generator, step: int, rank: int = 0) -> torch.Generator:
+    """A generator on ``generator``'s device seeded from (its seed, step),
+    and the rank where it is not 0."""
+    entropy = [generator.initial_seed(), step] + ([rank] if rank else [])
+    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
     return torch.Generator(device=generator.device).manual_seed(int(seed[0]) >> 1)
 
 
@@ -65,17 +81,25 @@ def _finalize(state: TrainState, losses: Dict[str, torch.Tensor], ema_momentum,
     return state, metrics
 
 
-def _train_step(model, losses_of, ema_momentum, grad_clip_norm) -> Callable:
+def _train_step(model, losses_of, ema_momentum, grad_clip_norm, group) -> Callable:
     """``step(state, batch, generator) -> (state, metrics)``: the model's
     ``forward_train`` in ``train()`` mode on ``fold_in(generator,
-    state.step)``, ``losses_of(outputs, batch)``, backward, ``_finalize``."""
+    state.step, rank)``, ``losses_of(outputs, batch)``, backward, the
+    gradients summed over ``group``, ``_finalize``. Rebinds the model's
+    BatchNorm layers to ``group``."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+    me = rank(group)
 
     def step(state: TrainState, batch: Dict[str, torch.Tensor], generator: torch.Generator):
         model.train()
         for p in model.parameters():
             p.grad = None
-        losses = losses_of(model.forward_train(batch, fold_in(generator, state.step)), batch)
+        losses = losses_of(model.forward_train(batch, fold_in(generator, state.step, me)),
+                           batch)
         total_loss(losses).backward()
+        all_reduce_grads(model.parameters(), group)
         return _finalize(state, {k: l.detach() for k, l in losses.items()}, ema_momentum,
                          grad_clip_norm)
 
@@ -83,8 +107,8 @@ def _train_step(model, losses_of, ema_momentum, grad_clip_norm) -> Callable:
 
 
 def make_pretrain_train_step(model, loss_cfg: PretrainLossConfig = PretrainLossConfig(),
-                             ema_momentum=None,
-                             grad_clip_norm: Optional[float] = None) -> Callable:
+                             ema_momentum=None, grad_clip_norm: Optional[float] = None,
+                             group=None) -> Callable:
     """The tri-modal pretrain step of ``CloverPretrain``: ``step(state,
     batch, generator) -> (state, metrics)`` with metrics the loss terms of
     ``pretrain_losses`` (``mlm_loss``, ``nce_loss``, ``rank_t_tm_loss``,
@@ -93,33 +117,35 @@ def make_pretrain_train_step(model, loss_cfg: PretrainLossConfig = PretrainLossC
     and ``v_token_mask`` on the model's device; otherwise as
     ``make_retrieval_train_step``."""
     return _train_step(model, lambda out, batch: pretrain_losses(out, batch["mlm_label"],
-                                                                 loss_cfg),
-                       ema_momentum, grad_clip_norm)
+                                                                 loss_cfg, group),
+                       ema_momentum, grad_clip_norm, group)
 
 
 def make_retrieval_train_step(model, temperature: float = 0.05, cos_sim: bool = True,
-                              ema_momentum=None,
-                              grad_clip_norm: Optional[float] = None) -> Callable:
+                              ema_momentum=None, grad_clip_norm: Optional[float] = None,
+                              group=None) -> Callable:
     """Retrieval-finetune step: ``step(state, batch, generator) -> (state,
     metrics)`` with metrics ``retrieval_nce_loss``, ``loss`` and
     ``grad_norm`` (0-d tensors). ``batch`` holds ``imgs``, ``token_ids`` and
     ``input_mask`` on the model's device; ``generator`` is the run's seeded
     generator on that device. The state is updated in place. After the
-    step the parameters' ``.grad`` hold the gradients the update used."""
+    step the parameters' ``.grad`` hold the gradients the update used. With
+    ``group`` the batch is this rank's slice of the global batch (module
+    docstring)."""
 
     return _train_step(model, lambda out, batch: retrieval_loss(*out, temperature=temperature,
-                                                               cos_sim=cos_sim),
-                       ema_momentum, grad_clip_norm)
+                                                               cos_sim=cos_sim, group=group),
+                       ema_momentum, grad_clip_norm, group)
 
 
-def make_qa_train_step(model, ema_momentum=None,
-                       grad_clip_norm: Optional[float] = None) -> Callable:
+def make_qa_train_step(model, ema_momentum=None, grad_clip_norm: Optional[float] = None,
+                       group=None) -> Callable:
     """QA / FIB finetune step: ``step(state, batch, generator) -> (state,
     metrics)`` with metrics ``qa_loss`` (CE of ``forward_train``'s (B,
     num_choices) logits against ``batch["label"]``), ``loss`` and
     ``grad_norm``; otherwise as ``make_retrieval_train_step``."""
-    return _train_step(model, lambda out, batch: qa_loss(out, batch["label"]), ema_momentum,
-                       grad_clip_norm)
+    return _train_step(model, lambda out, batch: qa_loss(out, batch["label"], group),
+                       ema_momentum, grad_clip_norm, group)
 
 
 def make_embed_eval_step(model) -> Callable:

@@ -18,6 +18,12 @@ The port's train state is updated in place (``engine/train_state.py``), and
 preemption handler saves only between them: a SIGTERM / SIGINT that lands
 inside a step, or inside an eval, is acted on when it has finished and the
 trained weights are back in the model.
+
+Data parallel (``group``): a signal may reach one rank only, and a rank that
+left alone would leave the others waiting in a collective. So under a group
+every signal waits for the next step or eval boundary, where the ranks agree
+on it (an ``all_reduce`` of the pending signal): every rank stops there, and
+rank 0 saves.
 """
 
 from __future__ import annotations
@@ -30,8 +36,10 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from clover_tpu_torch.engine.checkpoint import CheckpointManager
+from clover_tpu_torch.parallel.collectives import comm_device, world
 from clover_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -77,6 +85,7 @@ class Trainer:
         ckpt_manager: Optional[CheckpointManager] = None,
         ema_eval: bool = False,
         tensorboard: bool = False,
+        group=None,                            # the data-parallel group, if any
     ):
         assert len(train_steps) == len(train_loaders)
         self.state = state
@@ -97,6 +106,7 @@ class Trainer:
         self._epoch = 0          # current epoch, recorded in preemption ckpt meta
         self._busy = False       # a step or an eval holds the model: signals wait
         self._pending_signal: Optional[int] = None
+        self.group = group
 
     def resume(self) -> bool:
         if self.ckpt is None:
@@ -152,8 +162,18 @@ class Trainer:
             yield
         finally:
             self._busy = False
-        if self._pending_signal is not None:
-            self._preempt(self._pending_signal)
+        signum = self._agreed_signal()
+        if signum is not None:
+            self._preempt(signum)
+
+    def _agreed_signal(self) -> Optional[int]:
+        """The pending signal; under a group the one every rank acts on: the
+        largest signal number any rank holds."""
+        if world(self.group) == 1:
+            return self._pending_signal
+        flag = torch.tensor([self._pending_signal or 0], device=comm_device(self.group))
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=self.group)
+        return int(flag.item()) or None
 
     def _preempt(self, signum: int):
         self.metrics.log({"preempted_signal": signum,
@@ -166,12 +186,13 @@ class Trainer:
         """Save a checkpoint on SIGTERM/SIGINT before exiting (preemption
         safety -- the reference has no recovery story beyond resume,
         SURVEY.md §5.3). Outside a step or an eval it saves at once; inside
-        one, when it has finished. -> the handlers it replaced."""
+        one, or under a group, when it has finished. -> the handlers it
+        replaced."""
         if self.ckpt is None:
             return {}
 
         def handler(signum, _frame):
-            if self._busy:
+            if self._busy or world(self.group) > 1:
                 self._pending_signal = signum
             else:
                 self._preempt(signum)

@@ -7,6 +7,9 @@ outputs -> {loss name: scalar}, with the reference's key names;
   rank_v_vm_loss (multimodal_transformer_pretrain.py:127-169);
 - finetune retrieval: retrieval_nce_loss;
 - finetune QA / FIB: qa_loss (multimodal_transformer_finetune.py:114-123).
+
+Each takes the data-parallel ``group`` (None: this process alone) and passes
+it to its losses, which then give the global batch's values.
 """
 
 from __future__ import annotations
@@ -32,12 +35,13 @@ class PretrainLossConfig:
 
 
 def pretrain_losses(outputs: Dict[str, torch.Tensor], mlm_label: torch.Tensor,
-                    cfg: PretrainLossConfig = PretrainLossConfig()) -> Dict[str, torch.Tensor]:
+                    cfg: PretrainLossConfig = PretrainLossConfig(),
+                    group=None) -> Dict[str, torch.Tensor]:
     """CloverPretrain.forward_train's outputs -> the pretrain loss terms."""
     losses = {"mlm_loss": masked_lm_focal_loss(
         outputs["mlm_logits"], mlm_label.reshape((-1,) + mlm_label.shape[-1:]),
-        gamma=cfg.mlm_focal_gamma)}
-    nce = dict(temperature=cfg.nce_temperature, margin_ttm=cfg.margin_ttm)
+        gamma=cfg.mlm_focal_gamma, group=group)}
+    nce = dict(temperature=cfg.nce_temperature, margin_ttm=cfg.margin_ttm, group=group)
     # V -> [T, T_mask, T_recon] (reference :147-152)
     losses.update(exclusive_nce_with_ranking(
         outputs["visual_emb"], outputs["text_emb"], outputs["mask_word_emb"],
@@ -52,14 +56,17 @@ def pretrain_losses(outputs: Dict[str, torch.Tensor], mlm_label: torch.Tensor,
 
 
 def retrieval_loss(visual_emb: torch.Tensor, text_emb: torch.Tensor,
-                   temperature: float = 0.05, cos_sim: bool = True) -> Dict[str, torch.Tensor]:
+                   temperature: float = 0.05, cos_sim: bool = True,
+                   group=None) -> Dict[str, torch.Tensor]:
     return {"retrieval_nce_loss": norm_softmax_loss(visual_emb, text_emb,
-                                                    temperature=temperature, cos_sim=cos_sim)}
+                                                    temperature=temperature, cos_sim=cos_sim,
+                                                    group=group)}
 
 
-def qa_loss(logits: torch.Tensor, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+def qa_loss(logits: torch.Tensor, labels: torch.Tensor,
+            group=None) -> Dict[str, torch.Tensor]:
     """CE of the (B, num_choices) scores against the (B[, 1]) answer index."""
-    return {"qa_loss": cross_entropy(logits, labels.reshape(-1))}
+    return {"qa_loss": cross_entropy(logits, labels.reshape(-1), group=group)}
 
 
 def total_loss(losses: Dict[str, torch.Tensor]) -> torch.Tensor:

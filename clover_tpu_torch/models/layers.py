@@ -19,6 +19,7 @@ from torch import nn
 
 from clover_tpu_torch.ops import library
 from clover_tpu_torch.ops.layer_norm import layer_norm_plain
+from clover_tpu_torch.parallel.collectives import all_reduce_with_grad
 
 
 class Linear(nn.Linear):
@@ -164,7 +165,12 @@ class BatchNorm(nn.Module):
     In training it normalizes with the batch's fp32 mean and its biased
     variance max(0, E[x^2] - E[x]^2) and updates ra = 0.9 ra + 0.1 batch
     with the same two (``nn.BatchNorm1d`` keeps the unbiased variance); in
-    eval it uses the running statistics. Output in x's dtype."""
+    eval it uses the running statistics. Output in x's dtype.
+
+    ``group`` (a process group; None: this process alone, set by the train
+    steps) makes the batch the global one, as flax's over a sharded batch:
+    the row sums of x and x^2 and the row count are all-reduced, with the
+    gradient, so the running statistics stay equal on every rank."""
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -173,12 +179,20 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
         self.momentum, self.eps = momentum, eps
+        self.group = None
+
+    def _moments(self, xf: torch.Tensor):
+        """(E[x], E[x^2]) over the rows of xf, the group's rows under a group."""
+        rows = torch.full((1, xf.shape[1]), float(xf.shape[0]), device=xf.device)
+        sums = all_reduce_with_grad(torch.cat([xf.sum(dim=0, keepdim=True),
+                                               (xf * xf).sum(dim=0, keepdim=True), rows]),
+                                    self.group)
+        return sums[0] / sums[2], sums[1] / sums[2]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            xf = x.float().reshape(-1, x.shape[-1])
-            mean = xf.mean(dim=0)
-            var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+            mean, sq = self._moments(x.float().reshape(-1, x.shape[-1]))
+            var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
                 self.var.mul_(self.momentum).add_((1 - self.momentum) * var)

@@ -2,6 +2,8 @@
 
     python -m clover_tpu_torch.tools.train configs/exp/debug_retrieval_synthetic.py \
         --work-dir /tmp/run1 [--resume] [--cpu] [--cfg-options key=val ...]
+    torchrun --standalone --nproc_per_node=N -m clover_tpu_torch.tools.train CFG \
+        --distributed [--cpu] [...]
 
 Builds the data, the model (seeded random weights, or a ``load_from``
 warm start), AdamW with the config's schedule and freeze mask, the train
@@ -12,9 +14,16 @@ manager, then runs the epochs (``engine/trainer.py``): eval every
 epochs, and ``--resume`` from the latest one. ``data.train`` may be one
 dataset config or a list, trained with one step per loader per iteration.
 
-It runs on the card unless ``--cpu`` is given, and raises without one. It
-runs on one device: ``--distributed`` and a ``parallel`` section with a
-size above 1 raise (data parallel is ROADMAP.md Queue 1 item 5).
+It runs on the card unless ``--cpu`` is given, and raises without one.
+``--distributed`` trains data parallel, one process a card (NCCL; gloo on
+the CPU with ``--cpu``) under torchrun's variables, and raises without them:
+the config's ``batch_size`` is the global batch, each rank loads its
+rank-strided slice of it and of the val set, the parameters are broadcast
+from rank 0 after the init, a ``load_from`` and a ``--resume``, the losses
+and the gradient are the global batch's (``engine/steps.py``), and rank 0
+alone writes the config, ``metrics.jsonl``, TensorBoard events and the
+checkpoints. A ``parallel`` section with an fsdp, model or sequence size
+above 1 raises (ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ def parse_args(argv: Optional[List[str]] = None):
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (debug/CI)")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process data parallel (not ported yet: raises)")
+                   help="data parallel, one process a device, under torchrun")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of training into DIR")
     p.add_argument("--tb", action="store_true",
@@ -57,14 +66,12 @@ def pick_device(cpu: bool):
 
 
 def check_single_device(cfg, distributed: bool = False) -> None:
-    """Raise where the config or the command asks for more than one device."""
-    par = {k: int(v) for k, v in dict(cfg.get("parallel", {}) or {}).items()
-           if isinstance(v, (int, float))}
-    wide = {k: v for k, v in par.items() if v > 1}
-    if distributed or wide:
-        raise SystemExit(
-            f"multi-device runs ({'--distributed' if distributed else wide}) are not ported "
-            "yet: ROADMAP.md Queue 1 item 5 (data parallel)")
+    """Raise where the config or the command asks for more devices than the
+    entry drives: anything but data parallel, which runs only under
+    ``distributed``, over torchrun's ranks (``parallel.mesh.data_axis_size``)."""
+    from clover_tpu_torch.parallel.mesh import data_axis_size, torchrun_env
+
+    data_axis_size(cfg, int(torchrun_env()["WORLD_SIZE"]) if distributed else 1)
 
 
 def make_train_state(cfg, model, steps_per_epoch: int):
@@ -105,14 +112,15 @@ def make_train_state(cfg, model, steps_per_epoch: int):
                              ema=cfg.get("ema", {}).get("enabled", False))
 
 
-def build_eval_fn(cfg, model, dataset, loader, img_size: int):
+def build_eval_fn(cfg, model, dataset, loader, img_size: int, group=None):
     """``eval_fn(model) -> metrics`` for the config's eval, shared by the
     train and the test entry: for pretrain and retrieval models the
     dual-tower retrieval, or the ``eval_mode`` asked for ('mc_retrieval',
     'itm_retrieval', 'zeroshot_action'); the QA accuracy otherwise. Each
     call builds the Swin bias cache, and the zero-shot class embeddings,
     from the weights the model holds then (the parameters change between
-    evals)."""
+    evals). With ``group`` each rank iterates its shard of ``loader`` and
+    every rank gets the metrics of the whole set."""
     import torch
 
     from clover_tpu_torch.engine import (make_embed_eval_step, make_itm_embed_step,
@@ -131,7 +139,7 @@ def build_eval_fn(cfg, model, dataset, loader, img_size: int):
         # val iterates epoch(0): test-mode loaders are deterministic, so
         # every eval sees the same clips
         return dict(loader_iter=loader.epoch(0), bias_cache=swin_cache,
-                    out_size=img_size, dtype=m.dtype)
+                    out_size=img_size, dtype=m.dtype, group=group)
 
     if eval_mode == "itm_retrieval":
         # full-fusion ITM reranking (reference forward_test non-separate
@@ -166,7 +174,8 @@ def build_eval_fn(cfg, model, dataset, loader, img_size: int):
 
 def main(argv: Optional[List[str]] = None):
     """-> the Trainer after ``fit`` (its ``state`` holds the model, the
-    optimizer and the step)."""
+    optimizer and the step). With ``--distributed`` the process group stays
+    up for the caller (``__main__`` ends it)."""
     args = parse_args(argv)
     import torch
 
@@ -177,18 +186,26 @@ def main(argv: Optional[List[str]] = None):
                                          make_qa_train_step, make_retrieval_train_step,
                                          merge_pretrained_params, to_model_batch)
     from clover_tpu_torch.models import init_params
+    from clover_tpu_torch.parallel import collectives, mesh
     from clover_tpu_torch.utils.logging import get_logger, param_table
     from clover_tpu_torch.utils.profiling import trace
 
     logger = get_logger()
     cfg = load_config(args.config, overrides=parse_cfg_options(args.cfg_options))
     check_single_device(cfg, args.distributed)
-    device = pick_device(args.cpu)
+    group = None   # the data-parallel group: each rank its slice of every global batch
+    if args.distributed:
+        device = mesh.init_distributed(args.cpu)   # the CPU, or card LOCAL_RANK
+        group = mesh.data_group()
+    else:
+        device = pick_device(args.cpu)
+    rank, world = collectives.rank(group), collectives.world(group)
     work_dir = args.work_dir or cfg.get("work_dir") or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     os.makedirs(work_dir, exist_ok=True)
-    cfg.dump(os.path.join(work_dir, "config.json"))
-    logger.info("device: %s", device)
+    if rank == 0:
+        cfg.dump(os.path.join(work_dir, "config.json"))
+    logger.info("device: %s (rank %d of %d)", device, rank, world)
 
     # ------------------------------------------------------------- data
     tok_cfg = cfg.get("tokenizer")
@@ -200,7 +217,8 @@ def main(argv: Optional[List[str]] = None):
     if tokenizer is None:
         tokenizer = datasets[0].tokenizer
     loader_cfg = cfg.data.get("train_loader", {"batch_size": 8, "num_workers": 4})
-    loaders = [build_loader(ds, loader_cfg, seed=args.seed) for ds in datasets]
+    loaders = [build_loader(ds, loader_cfg, seed=args.seed, rank=rank, world_size=world)
+               for ds in datasets]
 
     # ------------------------------------------------------------- model
     model, _ = build_model(cfg.model, device=device)
@@ -223,6 +241,8 @@ def main(argv: Optional[List[str]] = None):
             raise SystemExit(f"load_from: no checkpoint in {load_from}")
         _, loaded, fresh = merge_pretrained_params(model, pretrained)
         logger.info("load_from %s: loaded %s; fresh %s", load_from, loaded, fresh)
+    # every rank starts from rank 0's weights
+    mesh.broadcast_module(model, group)
 
     # ----------------------------------------------------- optimizer
     steps_per_epoch = max(len(ld) for ld in loaders) * len(loaders)
@@ -237,27 +257,28 @@ def main(argv: Optional[List[str]] = None):
     clip = opt_cfg.get("grad_clip", None)
     if is_pretrain:
         step = make_pretrain_train_step(model, build_pretrain_loss_config(cfg),
-                                        ema_momentum=ema_m, grad_clip_norm=clip)
+                                        ema_momentum=ema_m, grad_clip_norm=clip, group=group)
     elif task == "retrieval":
         loss_type = cfg.model.get("loss", {})
         step = make_retrieval_train_step(
             model, temperature=loss_type.get("temperature", 0.05),
             cos_sim=loss_type.get("cos_sim", True), ema_momentum=ema_m,
-            grad_clip_norm=clip)
+            grad_clip_norm=clip, group=group)
     else:
-        step = make_qa_train_step(model, ema_momentum=ema_m, grad_clip_norm=clip)
+        step = make_qa_train_step(model, ema_momentum=ema_m, grad_clip_norm=clip, group=group)
 
     # ----------------------------------------------------- eval
     eval_fn = None
     eval_cfg = cfg.get("evaluation", {})
     if "val" in cfg.data:
         val_ds = build_dataset(cfg.data.val, tokenizer)
-        val_loader = build_loader(val_ds, cfg.data.get("val_loader", loader_cfg), test=True)
-        eval_fn = build_eval_fn(cfg, model, val_ds, val_loader, img_size)
+        val_loader = build_loader(val_ds, cfg.data.get("val_loader", loader_cfg), test=True,
+                                  rank=rank, world_size=world)
+        eval_fn = build_eval_fn(cfg, model, val_ds, val_loader, img_size, group)
 
     ckpt_mgr = CheckpointManager(
         os.path.join(work_dir, "checkpoints"),
-        max_to_keep=cfg.get("checkpoint", {}).get("max_to_keep", 3))
+        max_to_keep=cfg.get("checkpoint", {}).get("max_to_keep", 3), group=group)
 
     trainer = Trainer(
         state=state,
@@ -265,10 +286,12 @@ def main(argv: Optional[List[str]] = None):
         train_loaders=loaders,
         batch_to_device=batch_to_device,
         # the dropout generator on the run's device; each step folds in its
-        # step count (engine/steps.fold_in)
+        # step count and the rank (engine/steps.fold_in)
         generator=torch.Generator(device=device).manual_seed(args.seed + 1),
         total_epochs=cfg.total_epochs,
-        work_dir=work_dir,
+        # metrics.jsonl and TensorBoard events from rank 0 only; every rank
+        # logs to its own stdout
+        work_dir=work_dir if rank == 0 else None,
         log_interval=cfg.get("log_interval", 20),
         eval_fn=eval_fn,
         eval_interval=eval_cfg.get("interval", 1),
@@ -277,9 +300,11 @@ def main(argv: Optional[List[str]] = None):
         ckpt_manager=ckpt_mgr,
         ema_eval=ema_cfg.get("eval_with_ema", False),
         tensorboard=args.tb or cfg.get("log_tensorboard", False),
+        group=group,
     )
     if args.resume:
-        trainer.resume()
+        trainer.resume()   # every rank reads the same checkpoint
+        mesh.broadcast_module(model, group)
     with trace(args.profile):
         trainer.fit()
     if args.profile:
@@ -290,4 +315,10 @@ def main(argv: Optional[List[str]] = None):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    import torch.distributed as dist
+
+    try:
+        main(sys.argv[1:])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -37,6 +37,10 @@ def _host(v):
 
 
 class MetricsLogger:
+    """Each record to stdout and, with ``work_dir``, to its jsonl file (and
+    TensorBoard events). A data-parallel run gives ``work_dir`` to rank 0
+    only: the other ranks log to their own stdout."""
+
     def __init__(self, work_dir: Optional[str] = None,
                  filename: str = "metrics.jsonl", tensorboard: bool = False):
         self.logger = get_logger()

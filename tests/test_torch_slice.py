@@ -148,9 +148,10 @@ def test_port_imports_no_jax():
     """Importing clover_tpu_torch and running the tiny slice through the eval
     loop, then converting seeded published-schema checkpoints
     (``tools/convert_checkpoint.py``) and exporting, saving and loading the
-    serving bundle (``serving.py``, the ``clover::*`` ops), leaves jax, and
-    every module of the JAX package (clover_tpu and clover_tpu.*), out of
-    sys.modules."""
+    serving bundle (``serving.py``, the ``clover::*`` ops), and the
+    data-parallel modules (``parallel/``) in a one-rank gloo group, leaves
+    jax, and every module of the JAX package (clover_tpu and clover_tpu.*),
+    out of sys.modules."""
     code = textwrap.dedent("""
         import sys, types
         import numpy as np, torch
@@ -193,15 +194,21 @@ def test_port_imports_no_jax():
         fns = load_bundle(out)
         v = fns["video_tower_b1"](torch.zeros((1, 4, 112, 112, 3), dtype=torch.uint8))
         assert v.shape == (1, 768) and bool(torch.isfinite(v).all())
+        import torch.distributed as dist
+        from clover_tpu_torch.parallel import all_gather_with_grad, broadcast_module
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        broadcast_module(model, dist.group.WORLD)
+        assert all_gather_with_grad(v, dist.group.WORLD) is v
+        dist.destroy_process_group()
     """)
     _run_isolated(code)
 
 
 def test_chip_smoke_and_every_port_module_import_nothing_of_jax():
     """A bare ``import chip_smoke`` plus an import of every module of
-    clover_tpu_torch (the serving, conversion and op-library modules and
-    the export, convert and dress-rehearsal entries among them) leaves jax
-    and the JAX package out of sys.modules."""
+    clover_tpu_torch (the serving, conversion and op-library modules, the
+    data-parallel modules, and the export, convert and dress-rehearsal
+    entries among them) leaves jax and the JAX package out of sys.modules."""
     _run_isolated(textwrap.dedent("""
         import importlib, pkgutil, sys
         import chip_smoke
@@ -212,5 +219,7 @@ def test_chip_smoke_and_every_port_module_import_nothing_of_jax():
         assert {"clover_tpu_torch.serving", "clover_tpu_torch.models.convert",
                 "clover_tpu_torch.ops.library", "clover_tpu_torch.tools.export",
                 "clover_tpu_torch.tools.convert_checkpoint",
-                "clover_tpu_torch.tools.dress_rehearsal"} <= set(sys.modules)
+                "clover_tpu_torch.tools.dress_rehearsal", "clover_tpu_torch.parallel",
+                "clover_tpu_torch.parallel.collectives",
+                "clover_tpu_torch.parallel.mesh"} <= set(sys.modules)
     """))

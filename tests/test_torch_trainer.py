@@ -500,9 +500,9 @@ data = dict(test=dict(type="ActionVideoDataset", ann_file={str(ann)!r},
 
 
 def test_entries_refuse_what_they_do_not_run(tmp_path):
-    """No card and no --cpu, --distributed, or a parallel section above 1:
-    each raises before any work."""
-    with pytest.raises(SystemExit, match="Queue 1 item 5"):
+    """No card and no --cpu, --distributed without torchrun's variables, or
+    a parallel section above 1: each raises before any work."""
+    with pytest.raises(SystemExit, match="torchrun"):
         ptrain_entry.main([RETRIEVAL, "--cpu", "--distributed"])
     with pytest.raises(SystemExit, match="Queue 1 item 5"):
         _train([RETRIEVAL, "--cfg-options", "parallel.fsdp=2"])
